@@ -24,6 +24,7 @@ from bodyfitting_torch.models.body_model import (
     BodyModel,
     BodyParams,
 )
+from bodyfitting_torch.ops.sdf import DistanceVolume
 
 # integer index tables of a BodyModel; every other array field is float
 _INDEX_FIELDS = ("faces", "lmk_faces_idx", "dyn_lmk_faces_idx",
@@ -75,16 +76,39 @@ def fit_params_from_numpy(body: dict, global_transl, body_scale,
     )
 
 
+def distance_volume_from_numpy(fields: dict, batched: bool = False,
+                               dtype=None, device=None) -> DistanceVolume:
+    """:class:`DistanceVolume` from a JAX ``DistanceVolume``'s four arrays
+    (``dist``, ``face_idx``, ``origin``, ``spacing``); ``face_idx`` stays
+    int32.  Unbatched arrays (one frame) get a frame axis of 1."""
+    device = default_device(device)
+    kw = {}
+    for f in dataclasses.fields(DistanceVolume):
+        x = _tensor(fields[f.name], None if f.name == "face_idx" else dtype,
+                    device)
+        kw[f.name] = x if batched else x[None]
+    return DistanceVolume(**kw)
+
+
 def observations_from_numpy(fields: dict, batched: bool = False,
                             dtype=None, device=None) -> Observations:
     """:class:`Observations` from a JAX ``Observations``' array fields
-    (absent or None fields stay None; scan fields are not taken).
-    Unbatched arrays (one frame) get a frame axis of 1."""
+    (absent or None fields stay None).  ``scan_faces`` becomes int64 and
+    ``scan_volume`` is a dict of the volume's arrays (see
+    :func:`distance_volume_from_numpy`).  Unbatched arrays (one frame) get
+    a frame axis of 1."""
     device = default_device(device)
     kw = {}
     for f in dataclasses.fields(Observations):
         v: Optional[np.ndarray] = fields.get(f.name)
-        if v is not None:
+        if v is None:
+            continue
+        if f.name == "scan_volume":
+            kw[f.name] = distance_volume_from_numpy(v, batched, dtype, device)
+            continue
+        if f.name == "scan_faces":
+            x = torch.tensor(np.asarray(v, np.int64), device=device)
+        else:
             x = _tensor(v, dtype, device)
-            kw[f.name] = x if batched else x[None]
+        kw[f.name] = x if batched else x[None]
     return Observations(**kw)

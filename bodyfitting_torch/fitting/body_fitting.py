@@ -1,10 +1,13 @@
 """Frame-level fitting entry points.
 
-Counterpart of ``bodyfitting_tpu/fitting/body_fitting.py``
-(``build_observations`` and ``fit_frames_batched``): host-side data of one
-frame becomes an :class:`~bodyfitting_torch.fitting.smplify.Observations`
-with a frame axis of 1, and a batch of frames is fitted in one staged
-optimization.  HMR initialisation and scan fitting wait for later slices.
+Counterpart of ``bodyfitting_tpu/fitting/body_fitting.py``: host-side
+data of one frame becomes an
+:class:`~bodyfitting_torch.fitting.smplify.Observations` with a frame axis
+of 1 (``build_observations``, with the scan and its distance volume for
+scan fits); a batch of frames is fitted in one staged optimization
+(``fit_frames_batched``), and one scan by ``fit_scan``.  ``hmr_init``
+gives the mean-pose initialisation; the HMR network waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -25,6 +28,41 @@ from bodyfitting_torch.losses.silhouette import (
     extract_contours,
     resample_contours,
 )
+from bodyfitting_torch.ops import sdf
+from bodyfitting_torch.ops.rotations import rotmat_to_aa_np
+
+
+def hmr_init(image: Optional[np.ndarray], c2w: np.ndarray, bundle=None):
+    """Initial ``(betas [10], poses [72])`` (float32 numpy) for a fit: the
+    mean pose, with the global orientation rotated into the world frame
+    through the keyframe's camera-to-world rotation, as the JAX
+    ``hmr_init`` does without a network.  The HMR network (``bundle``)
+    waits for a later slice of the port and raises."""
+    if bundle is not None:
+        raise NotImplementedError("the HMR network waits for a later slice "
+                                  "of the port; pass bundle=None")
+    rotmat = np.broadcast_to(np.eye(3, dtype=np.float32), (24, 3, 3)).copy()
+    rotmat[0] = np.asarray(c2w)[:3, :3] @ rotmat[0]
+    poses = rotmat_to_aa_np(rotmat).reshape(-1)
+    return np.zeros(10, np.float32), poses.astype(np.float32)
+
+
+def init_params_from_hmr(model, betas: np.ndarray,
+                         poses: np.ndarray) -> smplify.FitParams:
+    """``hmr_init``'s output as the initial :class:`FitParams` of one
+    frame (betas cut or zero-padded to the model's count)."""
+    nb = model.num_body_joints
+    body_pose = poses[3:3 + 3 * nb]
+    init_betas = betas
+    if model.num_betas != betas.shape[0]:
+        init_betas = np.zeros(model.num_betas, np.float32)
+        init_betas[: min(model.num_betas, betas.shape[0])] = betas[
+            : model.num_betas
+        ]
+    return smplify.FitParams.init(
+        model, init_betas=init_betas, init_global_orient=poses[:3],
+        init_body_pose=body_pose,
+    )
 
 
 def build_observations(
@@ -45,6 +83,8 @@ def build_observations(
     contour_resample: Optional[int] = 512,
     mask_crop: bool = False,
     mask_crop_hw: Optional[tuple] = None,
+    build_sdf: bool = True,
+    sdf_resolution: int = 96,
     device=None,
 ) -> smplify.Observations:
     """One frame's Observations (leading frame axis of 1) on ``device``
@@ -56,11 +96,45 @@ def build_observations(
     zero contour validity, identity cameras.  ``contour_resample``
     arc-length resamples contours to that many points.  ``mask_crop``
     stores content crops for the stay-inside term instead of full masks.
+
+    With ``scan_verts`` / ``scan_faces`` (a scan fit), the scan's height
+    is its y extent and the constant scale ``height / 1.7``; with
+    ``build_sdf`` its ``sdf_resolution``³ distance volume is built here,
+    through the nearest-point kernel on the card.
     """
-    if scan_verts is not None or scan_faces is not None:
-        raise NotImplementedError("scan fitting waits for a later slice "
-                                  "of the port")
     device = default_device(device)
+    obs = _keypoint_and_mask_observations(
+        c2ws, Ks, keypoints, use_hand_face, constant_scale, masks, mask_c2ws,
+        mask_Ks, num_views, mask_num_views, mask_imsize, contour_pad,
+        contour_resample, mask_crop, mask_crop_hw, device)
+    if scan_verts is None:
+        return obs
+    sv = np.asarray(scan_verts, np.float32)
+    height = float(sv[:, 1].max() - sv[:, 1].min())
+    verts = torch.tensor(sv, device=device)
+    faces = torch.tensor(np.asarray(scan_faces, np.int64), device=device)
+    obs = dataclasses.replace(
+        obs, scan_verts=verts[None], scan_faces=faces[None],
+        scan_height=torch.tensor([height], dtype=torch.float32,
+                                 device=device),
+        constant_scale=torch.tensor(
+            [np.float32(height / constants.RENDERPEOPLE_PERSON_HEIGHT)],
+            device=device),
+    )
+    if build_sdf:
+        vol = sdf.build_distance_volume(verts, faces,
+                                        resolution=sdf_resolution)
+        obs = dataclasses.replace(obs, scan_volume=sdf.DistanceVolume(
+            dist=vol.dist[None], face_idx=vol.face_idx[None],
+            origin=vol.origin[None], spacing=vol.spacing.reshape(1)))
+    return obs
+
+
+def _keypoint_and_mask_observations(
+        c2ws, Ks, keypoints, use_hand_face, constant_scale, masks, mask_c2ws,
+        mask_Ks, num_views, mask_num_views, mask_imsize, contour_pad,
+        contour_resample, mask_crop, mask_crop_hw, device):
+    """The keypoint and mask fields of :func:`build_observations`."""
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)[None]
@@ -165,3 +239,15 @@ def fit_frames_batched(
     obs = smplify.concat_frames(list(obs_list))
     init = smplify.concat_frames(list(init_list))
     return smplify.fit(model, config, obs, init, pose_prior_fn)
+
+
+def fit_scan(model, config: smplify.FitConfig, obs: smplify.Observations,
+             init: smplify.FitParams, pose_prior_fn):
+    """Fit one scan (``obs`` and ``init`` of one frame), the counterpart
+    of the JAX app's unbatched fit program (``_fit_program(...,
+    batched=False)``).  Returns ``(FitParams, result, losses)`` with the
+    result arrays and the loss trace (body steps, then displacement
+    steps) without the frame axis; the parameters keep it."""
+    params, result, losses = smplify.fit(model, config, obs, init,
+                                         pose_prior_fn)
+    return params, {k: v[0] for k, v in result.items()}, losses[0]

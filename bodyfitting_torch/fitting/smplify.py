@@ -16,7 +16,12 @@ Behaviours kept from the JAX package:
     stage_gate_den``, weighted ``mask_weight``;
   * mask-only fits run one reduced model that keeps the joint rows and
     the every-4th vertex rows the silhouette term reads
-    (:func:`loss_models`).
+    (:func:`loss_models`);
+  * scan fits (``use_mesh``) add the point-to-scan term after the gate,
+    through the distance volume (``mesh_loss_impl="sdf"``) or the exact
+    nearest-point query (``"exact"``), and with ``displacement`` run the
+    SMPL+D stage after the body fit.  A scan fit takes one frame (B=1),
+    as the RenderPeople app fits one scan at a time.
 """
 
 from __future__ import annotations
@@ -28,10 +33,19 @@ import numpy as np
 import torch
 
 from bodyfitting_torch.losses.keypoints import multiview_keypoint_loss
+from bodyfitting_torch.losses.mesh import (
+    compute_face_normals,
+    compute_vertex_normals,
+    normal_laplacian_smoothness,
+    normal_loss,
+    point_cloud_loss,
+)
 from bodyfitting_torch.losses.silhouette import silhouette_loss
 from bodyfitting_torch.models import body_model as bm
+from bodyfitting_torch.ops import sdf
+from bodyfitting_torch.ops.nearest import nearest_points
 
-_LATER = "a later slice of the port"
+MESH_LOSS_IMPLS = ("sdf", "exact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +53,11 @@ class FitConfig:
     """Static fitting configuration: the JAX ``FitConfig``'s fields and
     defaults.  ``view_chunk`` sums the keypoint term over blocks of views
     here too.  ``remat_forward`` and ``scan_unroll`` choose how XLA
-    compiles the JAX fit and have no counterpart here, and
-    ``mesh_loss_impl`` belongs to the scan term (``use_mesh``): each
-    raises when set away from its default, rather than being ignored."""
+    compiles the JAX fit and have no counterpart here: each raises when
+    set away from its default, rather than being ignored.
+    ``mesh_loss_impl`` is ``"sdf"`` (the distance volume, when the
+    observations carry one) or ``"exact"`` (the nearest-point query every
+    step); anything else raises."""
 
     num_iters: int = 600
     step_size: float = 1e-2
@@ -76,9 +92,9 @@ class FitConfig:
                 "remat_forward and scan_unroll are JAX compilation options "
                 "with no counterpart in the port; leave them at their "
                 "defaults")
-        if self.mesh_loss_impl != "sdf":
-            raise NotImplementedError(
-                f"mesh_loss_impl (the use_mesh scan term) waits for {_LATER}")
+        if self.mesh_loss_impl not in MESH_LOSS_IMPLS:
+            raise ValueError(f"mesh_loss_impl must be one of "
+                             f"{MESH_LOSS_IMPLS}, got {self.mesh_loss_impl!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +152,9 @@ class FitParams:
 class Observations:
     """Observed data with a leading frame axis ``B`` (pad views as needed).
 
-    Scan fields of the JAX class (``use_mesh``) wait for a later slice.
+    The scan fields (``use_mesh``) carry the frame axis too; a scan fit
+    takes one frame.  ``scan_volume`` is an :class:`ops.sdf.DistanceVolume`
+    whose fields have the frame axis.
     """
 
     w2cs: torch.Tensor                     # [B, Vw, 4, 4]
@@ -153,6 +171,10 @@ class Observations:
     mask_crops: Optional[torch.Tensor] = None       # [B, Vm, Hc, Wc]
     mask_crop_origins: Optional[torch.Tensor] = None  # [B, Vm, 2]
     mask_view_valid: Optional[torch.Tensor] = None  # [B, Vm]
+    scan_verts: Optional[torch.Tensor] = None       # [B, Vs, 3]
+    scan_faces: Optional[torch.Tensor] = None       # [B, Fs, 3] int64
+    scan_height: Optional[torch.Tensor] = None      # [B]
+    scan_volume: Optional[sdf.DistanceVolume] = None
 
 
 def concat_frames(items):
@@ -244,8 +266,6 @@ def fit_loss(
     marks ``model`` as a merged reduction whose rows hold the strided
     vertices the silhouette term reads (see :func:`loss_models`).
     """
-    if config.use_mesh:
-        raise NotImplementedError(f"use_mesh waits for {_LATER}")
     jm = joints_model if joints_model is not None else model
     out = bm.forward(jm, params.body)
     scale = params.body_scale * obs.constant_scale[:, None]      # [B, 1]
@@ -265,17 +285,21 @@ def fit_loss(
         view_chunk=config.view_chunk,
     )
 
-    if config.use_mask:
-        if step > config.num_iters // config.stage_gate_den:
-            stride = 4                      # reference loss.py:94 [::4]
-            if mask_vertex_rows is not None:
-                verts = out.vertices[:, mask_vertex_rows]
-                stride = 1
-            elif joints_model is None:
-                verts = out.vertices
-            else:
-                verts = bm.forward(model, params.body).vertices
-            verts = (verts + transl) * scale[:, :, None]
+    if not (config.use_mask or config.use_mesh):
+        return total, terms
+    mask_l = pc_l = torch.zeros_like(total)
+    # the full-vertex forward runs only after the gate (JAX's lax.cond)
+    if step > config.num_iters // config.stage_gate_den:
+        stride = 4                          # reference loss.py:94 [::4]
+        if mask_vertex_rows is not None:
+            verts = out.vertices[:, mask_vertex_rows]
+            stride = 1
+        elif joints_model is None:
+            verts = out.vertices
+        else:
+            verts = bm.forward(model, params.body).vertices
+        verts = (verts + transl) * scale[:, :, None]
+        if config.use_mask:
             mask_l = silhouette_loss(
                 obs.contours, obs.contour_valid, obs.masks,
                 obs.mask_w2cs, obs.mask_Ks, verts,
@@ -285,23 +309,53 @@ def fit_loss(
                 mask_view_valid=obs.mask_view_valid,
                 full_hw=(int(config.imsize), int(config.imsize)),
             )
-        else:
-            mask_l = torch.zeros_like(total)
+        if config.use_mesh:
+            scan_verts, scan_faces, height, volume = scan_of(obs)
+            if config.mesh_loss_impl == "sdf" and volume is not None:
+                pc = sdf.point_cloud_loss_sdf(verts[0], volume)
+            else:
+                pc = point_cloud_loss(verts[0], scan_verts, scan_faces)
+            # reference: / scan_height * imsize (smplify.py:206)
+            pc_l = (pc / height * config.imsize).reshape(1)
+    if config.use_mask:
         total = total + config.mask_weight * mask_l
         terms["mask_loss"] = mask_l
+    if config.use_mesh:
+        total = total + config.pc_weight * pc_l
+        terms["pc_loss"] = pc_l
     return total, terms
+
+
+def scan_of(obs: Observations):
+    """``(scan_verts, scan_faces, scan_height, scan_volume)`` of a
+    one-frame scan fit, without the frame axis; the volume is None when
+    the observations carry none.  Batches of scans raise."""
+    if obs.scan_verts is None:
+        raise ValueError("use_mesh needs observations with a scan (pass "
+                         "scan_verts and scan_faces to build_observations)")
+    if obs.scan_verts.shape[0] != 1:
+        raise NotImplementedError(
+            f"a scan fit takes one frame; got a batch of "
+            f"{obs.scan_verts.shape[0]} scans")
+    vol = obs.scan_volume
+    if vol is not None:
+        vol = sdf.DistanceVolume(dist=vol.dist[0], face_idx=vol.face_idx[0],
+                                 origin=vol.origin[0], spacing=vol.spacing[0])
+    return obs.scan_verts[0], obs.scan_faces[0], obs.scan_height[0], vol
 
 
 def loss_models(model: bm.BodyModel, config: FitConfig):
     """``(loss_model, joints_model, mask_rows)`` as the JAX package picks
     them: with ``reduce_joints_only``, keypoint-only fits run the
-    joints-reduced model and mask fits one reduced model that also keeps
+    joints-reduced model; mask fits one reduced model that also keeps
     the every-4th vertex rows (ordered by height for
-    ``mask_point_order="height"``), indexed by ``mask_rows``."""
-    if config.use_mesh:
-        raise NotImplementedError(f"use_mesh waits for {_LATER}")
+    ``mask_point_order="height"``), indexed by ``mask_rows``; scan fits
+    the full model for vertices and the joints-reduced one for
+    keypoints."""
     if not config.reduce_joints_only:
         return model, None, None
+    if config.use_mesh:
+        return model, bm.reduce_for_joints(model), None
     if config.use_mask:
         ids = np.arange(0, model.num_verts, 4)
         if config.mask_point_order == "height":
@@ -346,12 +400,14 @@ def fit(model: bm.BodyModel, config: FitConfig, obs: Observations,
     """Run the staged SMPLify optimization for a batch of frames.
 
     Returns ``(final FitParams, result dict, losses [B, num_iters])``;
-    ``init`` is not modified.  Runs where ``model``'s tensors are.
+    ``init`` is not modified.  Runs where ``model``'s tensors are.  A
+    scan fit with ``displacement`` then runs the SMPL+D stage on the
+    detached body vertices: ``result["displacement"]`` is ``[1, V, 3]``
+    and the losses are ``[1, 2 num_iters]``, the body trace followed by
+    the displacement trace.
     """
-    if config.use_mesh or config.displacement:
-        raise NotImplementedError(
-            f"use_mesh / displacement wait for {_LATER}"
-        )
+    if config.use_mesh:
+        scan_of(obs)                        # one frame with a scan
     params = FitParams.from_tensors([t.detach().clone()
                                      for t in init.tensors()])
     opt = make_optimizer(config, params)
@@ -359,7 +415,13 @@ def fit(model: bm.BodyModel, config: FitConfig, obs: Observations,
     losses = [step_fn(i) for i in range(config.num_iters)]
     with torch.no_grad():
         result = fit_result(model, params, obs)
-    return params, result, torch.stack(losses, dim=1)
+    losses = torch.stack(losses, dim=1)
+    if config.displacement and config.use_mesh:
+        disp, disp_losses = fit_displacement(
+            model, config, obs, result["vertices"][0].detach())
+        result["displacement"] = disp[None]
+        losses = torch.cat([losses, disp_losses[None]], dim=1)
+    return params, result, losses
 
 
 def fit_result(model, params: FitParams, obs: Observations) -> dict:
@@ -377,3 +439,57 @@ def fit_result(model, params: FitParams, obs: Observations) -> dict:
         "scale": params.body_scale,
         "full_pose": out.full_pose,
     }
+
+
+def fit_displacement(model: bm.BodyModel, config: FitConfig,
+                     obs: Observations, body_vertices: torch.Tensor):
+    """Stage 2, SMPL+D: per-vertex displacements of the fitted body
+    ``[V, 3]`` fitted to the scan.  Returns ``(displacement [V, 3],
+    losses [num_iters])``, each loss taken before its step's update."""
+    disp_loss, opt, disp = displacement_problem(model, config, obs,
+                                                body_vertices)
+    losses = []
+    for _ in range(config.num_iters):
+        disp.requires_grad_(True)
+        loss = disp_loss(disp)
+        (grad,) = torch.autograd.grad(loss, [disp])
+        disp.requires_grad_(False)
+        opt.step([grad])
+        losses.append(loss.detach())
+    return disp, torch.stack(losses)
+
+
+def displacement_problem(model: bm.BodyModel, config: FitConfig,
+                         obs: Observations, body_vertices: torch.Tensor):
+    """The displacement stage as ``(loss_fn, optimizer, init)``: the
+    point-to-scan, normal and normal-smoothness terms on ``body_vertices
+    + disp``, and Adam at ``disp_lr`` (``optax.adam``: ``scale_by_adam``,
+    eps 1e-8, then ``-lr``) over a displacement that starts at zero and
+    is updated in place."""
+    faces = model.faces
+    scan_verts, scan_faces, _, volume = scan_of(obs)
+    scan_face_normals = compute_face_normals(scan_verts, scan_faces)
+    use_sdf = config.mesh_loss_impl == "sdf" and volume is not None
+    constant_scale = obs.constant_scale[0]
+
+    def disp_loss(disp):
+        deformed = body_vertices + disp
+        deformed_norms = compute_vertex_normals(deformed, faces)
+        if use_sdf:
+            icp = sdf.point_cloud_loss_sdf(deformed, volume)
+            nl = sdf.normal_loss_sdf(deformed, deformed_norms, volume,
+                                     scan_face_normals)
+        else:
+            # one query shared by both terms
+            near = nearest_points(deformed.reshape(-1, 3), scan_verts,
+                                  scan_faces)
+            icp = point_cloud_loss(deformed, scan_verts, scan_faces,
+                                   nearest=near)
+            nl = normal_loss(deformed, deformed_norms, scan_verts,
+                             scan_faces, scan_face_normals, nearest=near)
+        sm = normal_laplacian_smoothness(deformed_norms, faces)
+        return icp + (nl + sm) * constant_scale * 0.1
+
+    disp0 = torch.zeros_like(body_vertices)
+    opt = Adam([disp0], [config.disp_lr], config.adam_b1, config.adam_b2)
+    return disp_loss, opt, disp0

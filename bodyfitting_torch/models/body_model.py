@@ -702,3 +702,23 @@ def synthetic_model(
         flat_hand_mean=False,
         use_face_contour=use_face_contour and is_x,
     )
+
+
+def spin_joint_mapper_for_smpl(model: BodyModel) -> BodyModel:
+    """Attach the 49-joint SPIN permutation to a SMPL model, as the JAX
+    package's apps load every SMPL model: joints = permute([45 joints ++ 9
+    extra-regressed], SPIN_JOINT_PERMUTATION).  Without an
+    ``extra_joint_regressor`` the 9 extra joints are zeros; only SPIN rows
+    >= 25 read them, and the fitting losses use the first 25."""
+    from bodyfitting_torch.constants import SPIN_JOINT_PERMUTATION
+
+    extra = model.extra_joint_regressor
+    if extra is None:
+        extra = torch.zeros((9, model.num_verts), dtype=model.dtype,
+                            device=model.device)
+    return dataclasses.replace(
+        model,
+        joint_mapper=torch.as_tensor(SPIN_JOINT_PERMUTATION.astype(np.int64),
+                                     device=model.device),
+        extra_joint_regressor=extra,
+    )

@@ -14,12 +14,17 @@ from bodyfitting_torch.ops.kernels.contour_match import (
     contour_match_full_plain,
     contour_min_idx,
 )
+from bodyfitting_torch.ops.kernels.nearest import (
+    nearest_d2_idx,
+    nearest_d2_idx_plain,
+)
 from bodyfitting_torch.ops.kernels.rows_scatter import (
     rows_scatter_add,
     rows_scatter_add_plain,
 )
 
-KERNELS = (bilinear_cov_grads, contour_match_full, rows_scatter_add)
+KERNELS = (bilinear_cov_grads, contour_match_full, rows_scatter_add,
+           nearest_d2_idx)
 
 
 def reset_launch_counts() -> None:
@@ -35,5 +40,6 @@ __all__ = [
     "bilinear_cov_grads", "bilinear_cov_grads_plain",
     "contour_match_full", "contour_match_full_plain", "contour_min_idx",
     "rows_scatter_add", "rows_scatter_add_plain",
+    "nearest_d2_idx", "nearest_d2_idx_plain",
     "KERNELS", "reset_launch_counts", "launch_counts",
 ]

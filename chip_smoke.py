@@ -6,6 +6,10 @@ CUDA card, ``nvcc`` (``/usr/local/cuda``) and scipy:
 
     python3 chip_smoke.py              # add --profile for a kernel trace
 
+``--save-volume NPZ`` also writes the scan problem, its distance volume
+and the SDF fit's result, for ``python -m tests.scan_fit_vs_jax NPZ``
+(the same fit by the JAX package on the CPU).
+
 Phases; the first failure ends the run with a non-zero exit code:
 
 1. device: require CUDA; print the card's name and power limit.
@@ -27,6 +31,21 @@ Phases; the first failure ends the run with a non-zero exit code:
 5. kernels: each kernel against its plain version on the inputs the main
    path gave it at its final state, and timed beside the plain version
    and a PyTorch call that computes (nearly) the same function.
+6. scan path: RenderPeople's SMPLify + SMPL+D fit of one scan with the
+   synthetic SMPL model (6846 vertices, SPIN joints).  The scan is a
+   seeded ground-truth body subdivided twice (219,008 faces) and pushed
+   out 5-15 mm along its normals; keypoints on 8 ring views at 512^2;
+   the mean-pose init.  With the counters zeroed: the 96^3 distance
+   volume (14 chunks through the nearest-point kernel) and the 600 + 600
+   SDF fit; then the exact route, 90 + 90 at full width, one kernel
+   launch per post-gate and per displacement step.  Checks: finite loss,
+   the point-to-scan term live after the gate, the displacement stage
+   descends, the kernel equals its plain version (d2 bitwise, idx
+   exactly) at a volume chunk and at the exact fit's final query, and
+   loss and gradient agree with the plain version there.
+7. the kernel's times at the volume chunk and the in-fit query, beside
+   its bound: the bytes it must move, or the operations of the pairs
+   that per-face bounding boxes cannot rule out on this data.
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -56,15 +75,24 @@ MAIN_PATH = dict(num_verts=10475, n_frames=8, n_views=48, n_mask_views=8,
                  imsize=512, focal=900.0, dist=2.0, contour_points=512,
                  num_iters=600)
 
+# The scan path's shape: RenderPeople's SMPL+D fit (--smpl_type smpl,
+# --viewnum 8 --load_size 512) of a 219,008-face scan, the 96^3 volume
+# build of the default mesh_loss_impl="sdf", 600 + 600 iterations; the
+# exact nearest-point route at full width and a cut depth.
+SCAN_PATH = dict(num_verts=6890, n_views=8, imsize=512, subdivisions=2,
+                 sdf_resolution=96, num_iters=600, exact_iters=90)
+
 TPU_KERNELS = {
     "bilinear_cov_grads": "bodyfitting_tpu/ops/pallas_kernels.py:1242",
     "contour_match_full": "bodyfitting_tpu/ops/pallas_kernels.py:1620",
     "rows_scatter_add": "bodyfitting_tpu/ops/pallas_kernels.py:1738",
+    "nearest_d2_idx": "bodyfitting_tpu/ops/pallas_kernels.py:49",
 }
 SOURCES = {
     "bilinear_cov_grads": "bodyfitting_torch/ops/csrc/bilinear.cu",
     "contour_match_full": "bodyfitting_torch/ops/csrc/contour_match.cu",
     "rows_scatter_add": "bodyfitting_torch/ops/csrc/rows_scatter.cu",
+    "nearest_d2_idx": "bodyfitting_torch/ops/csrc/nearest.cu",
 }
 
 
@@ -193,6 +221,81 @@ def make_problem(model, n_frames, n_views, n_mask_views, imsize, focal,
         for f in range(B)
     ]
     return obs_list, init_list, crop_hw
+
+
+def subdivide(verts, faces):
+    """Midpoint subdivision: each triangle into four, edge midpoints
+    shared between neighbours."""
+    F = len(faces)
+    edges = np.sort(np.concatenate(
+        [faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]), axis=1)
+    uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+    mid = len(verts) + inv.reshape(3, F).T               # m01, m12, m20
+    verts = np.concatenate([verts, 0.5 * (verts[uniq[:, 0]]
+                                          + verts[uniq[:, 1]])])
+    a, b, c = faces.T
+    m01, m12, m20 = mid.T
+    faces = np.concatenate([
+        np.stack([a, m01, m20], 1), np.stack([m01, b, m12], 1),
+        np.stack([m20, m12, c], 1), np.stack([m01, m12, m20], 1)])
+    return verts, faces.astype(np.int64)
+
+
+def vertex_normals(verts, faces):
+    """Area-weighted unit vertex normals (numpy)."""
+    fn = np.cross(verts[faces[:, 1]] - verts[faces[:, 0]],
+                  verts[faces[:, 2]] - verts[faces[:, 0]])
+    vn = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    return vn / np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-12)
+
+
+def make_scan_problem(model, n_views, imsize, subdivisions, seed):
+    """A seeded RenderPeople-style scan problem for a SMPL ``model`` (with
+    the SPIN joint mapper): ``(c2ws, Ks, keypoints, scan_verts,
+    scan_faces)``.
+
+    The scan is the posed ground-truth surface, midpoint-subdivided
+    ``subdivisions`` times, pushed out along its normals by a smooth
+    5-15 mm offset that stands in for clothing.  Keypoints are the
+    ground truth's 25 BODY_25 joints on ``n_views`` ring views at
+    ``imsize``², focal ``imsize`` and distance height / 0.8, as the
+    RenderPeople app renders its scans, with 1 px of seeded noise."""
+    import torch
+
+    from bodyfitting_torch.models import body_model as bm
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=model.dtype,
+                               device=model.device)[None]
+
+    gt = dataclasses.replace(
+        bm.BodyParams.zeros(model, 1),
+        body_pose=t(rng.normal(scale=0.15, size=3 * model.num_body_joints)),
+        betas=t(rng.normal(scale=0.5, size=model.num_betas)),
+        global_orient=t([0.05, rng.uniform(-0.3, 0.3), 0.0]),
+    )
+    with torch.no_grad():
+        out = bm.forward(model, gt)
+    verts = out.vertices[0].double().cpu().numpy()
+    joints = out.joints[0, :25].double().cpu().numpy()
+    faces = model.faces.cpu().numpy().astype(np.int64)
+    for _ in range(subdivisions):
+        verts, faces = subdivide(verts, faces)
+    offset = 0.010 + 0.005 * np.sin(7.0 * verts[:, 1]) * np.cos(
+        5.0 * verts[:, 0] + 3.0 * verts[:, 2])          # 5-15 mm
+    scan_verts = verts + offset[:, None] * vertex_normals(verts, faces)
+    height = float(np.ptp(scan_verts[:, 1]))
+    c2ws, Ks = ring_cameras(n_views, imsize, float(imsize), height / 0.8)
+    kps = []
+    for c2w, K in zip(c2ws, Ks):
+        uv = project(joints, c2w, K) + rng.normal(scale=1.0, size=(25, 2))
+        kps.append(dict(pose=np.concatenate(
+            [uv, np.ones((25, 1))], 1).astype(np.float32)))
+    return c2ws, Ks, kps, scan_verts.astype(np.float32), faces
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +459,17 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def steps_ms(step, steps, device):
+    """Host-clock ms per ``step(i)`` over ``steps``, the device drained at
+    both ends."""
+    sync(device)
+    t = time.perf_counter()
+    for i in steps:
+        step(i)
+    sync(device)
+    return (time.perf_counter() - t) / len(steps) * 1e3
+
+
 def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
     import torch
 
@@ -436,19 +550,11 @@ def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
     opt = smplify.make_optimizer(config, fresh)
     step_fn = smplify.make_step_fn(model, config, obs, prior, opt)
 
-    def steps_ms(steps):
-        sync(device)
-        t = time.perf_counter()
-        for i in steps:
-            step_fn(i)
-        sync(device)
-        return (time.perf_counter() - t) / len(steps) * 1e3
-
     n = max(min(40, gate - 3), 1)
-    steps_ms(range(0, 3))
-    pre = steps_ms(range(3, 3 + n))
-    steps_ms(range(gate + 1, gate + 4))
-    post = steps_ms(range(gate + 4, gate + 4 + n))
+    steps_ms(step_fn, range(0, 3), device)
+    pre = steps_ms(step_fn, range(3, 3 + n), device)
+    steps_ms(step_fn, range(gate + 1, gate + 4), device)
+    post = steps_ms(step_fn, range(gate + 4, gate + 4 + n), device)
     log(f"step time: {pre:.3f} ms/iteration before the gate, {post:.3f} "
         f"ms/iteration after it ({n} steps each, host clock)")
     if profile:
@@ -458,7 +564,7 @@ def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
                 wall=wall, pre_ms=pre, post_ms=post)
 
 
-def profile_steps(step_fn, steps):
+def profile_steps(step_fn, steps, what="post-gate steps"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -475,9 +581,11 @@ def profile_steps(step_fn, steps):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
-    log(f"profile: {len(steps)} post-gate steps, {wall * 1e3:.1f} ms wall, "
+    calls = sum(e.count for e in events) / len(steps)
+    log(f"profile: {len(steps)} {what}, {wall * 1e3:.1f} ms wall, "
         f"device busy {dev_us / 1e3:.1f} ms "
-        f"({100 * dev_us / 1e3 / (wall * 1e3):.1f} %)")
+        f"({100 * dev_us / 1e3 / (wall * 1e3):.1f} %), {calls:.0f} device "
+        f"kernels and copies a step")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / len(steps):9.1f} us/step "
             f"{e.count // len(steps):5d} calls/step  {e.key[:90]}")
@@ -679,14 +787,355 @@ def phase_kernels(state):
     return table
 
 
+# ---------------------------------------------------------------------------
+# The scan path: RenderPeople's SMPLify + SMPL+D fit
+# ---------------------------------------------------------------------------
+
+# per query-face pair that is evaluated, the operations the distance cannot
+# do without: 9 differences p - a/b/c, six 3-dots (30), va/vb/vc (9),
+# d4 - d3 and d5 - d6 (2), and the squared distance to the closest point
+# (8); the region's candidate point is left out
+NEAREST_OPS_PER_PAIR = 58
+
+
+def box_survivors(pts, tri, d2, tie_verts, chunk=512):
+    """The query-face pairs that the function needs evaluated on this data:
+    those whose face's bounding box lies within the query's tie band
+    (``tie_threshold`` of its minimum ``d2``).  Every other pair is ruled
+    out by its box alone, so an exact query that culls with per-face
+    boxes (the TPU kernel culls with boxes of face blocks, coarser) need
+    not compute its distance."""
+    import torch
+
+    from bodyfitting_torch.ops.kernels.nearest import tie_threshold
+
+    lo, hi = tri.amin(dim=1), tri.amax(dim=1)              # [F, 3]
+    thr = tie_threshold(d2, tie_verts)
+    n = 0
+    for s in range(0, pts.shape[0], chunk):
+        p = pts[s:s + chunk, None]                          # [c, 1, 3]
+        e = torch.clamp(lo - p, min=0) + torch.clamp(p - hi, min=0)
+        n += int(((e * e).sum(-1) <= thr[s:s + chunk, None]).sum())
+    return n
+
+
+@contextlib.contextmanager
+def nearest_ops(replace):
+    """Temporarily replace the nearest-point kernel entry point where the
+    scan path calls it (the volume build and the exact query)."""
+    from bodyfitting_torch.ops import nearest as near
+    from bodyfitting_torch.ops import sdf
+
+    orig = near.nearest_d2_idx
+    for mod in (near, sdf):
+        mod.nearest_d2_idx = replace(orig)
+    try:
+        yield
+    finally:
+        for mod in (near, sdf):
+            mod.nearest_d2_idx = orig
+
+
+def recorder(calls):
+    def replace(fn):
+        def wrapped(*a, **kw):
+            calls.append((a, kw))
+            return fn(*a, **kw)
+        return wrapped
+    return replace
+
+
+def check_nearest(args, kw, what):
+    """The kernel against its plain version on one call's inputs: ``d2``
+    bitwise, ``idx`` exactly; returns the max abs error of ``d2``."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+
+    d2, idx = K.nearest_d2_idx(*args, **kw)
+    d2p, idxp = K.nearest_d2_idx_plain(*args, **kw)
+    sync(d2.device)
+    err = float((d2 - d2p).abs().max())
+    ok = torch.equal(d2, d2p) and torch.equal(idx, idxp)
+    log(f"nearest_d2_idx {what}: Q {args[0].shape[0]} F {args[1].shape[0]}: "
+        f"d2 bitwise equal {torch.equal(d2, d2p)}, idx equal "
+        f"{torch.equal(idx, idxp)} (tol: exact); max abs err {err:.3e}")
+    assert ok, f"nearest_d2_idx differs from its plain version ({what})"
+    return err
+
+
+def scan_step_times(model, config, obs, prior, init, body_vertices, device,
+                    n, profile=False):
+    """Host-clock ms per body step before and after the gate, and per
+    displacement step, each over ``n`` steps from a fresh start; with
+    ``profile``, 20 more of each kind after the gate traced."""
+    from bodyfitting_torch.fitting import smplify
+
+    gate = config.num_iters // config.stage_gate_den
+    fresh = smplify.FitParams.from_tensors([t.clone() for t in init.tensors()])
+    opt = smplify.make_optimizer(config, fresh)
+    step_fn = smplify.make_step_fn(model, config, obs, prior, opt)
+    steps_ms(step_fn, range(0, 2), device)
+    pre = steps_ms(step_fn, range(2, 2 + n), device)
+    steps_ms(step_fn, range(gate + 1, gate + 3), device)
+    post = steps_ms(step_fn, range(gate + 3, gate + 3 + n), device)
+    if profile:
+        profile_steps(step_fn, range(gate + 3 + n, gate + 23 + n),
+                      "SDF post-gate steps")
+    disp_loss, dopt, disp = smplify.displacement_problem(
+        model, config, obs, body_vertices)
+
+    def disp_step(_):
+        import torch
+
+        disp.requires_grad_(True)
+        (g,) = torch.autograd.grad(disp_loss(disp), [disp])
+        disp.requires_grad_(False)
+        dopt.step([g])
+
+    steps_ms(disp_step, range(2), device)
+    dstep = steps_ms(disp_step, range(n), device)
+    if profile:
+        profile_steps(disp_step, range(20), "SDF displacement steps")
+    return pre, post, dstep
+
+
+def phase_scan(size=SCAN_PATH, device="cuda", n_time=40, smi="",
+               profile=False, save_volume=None):
+    """The scan path through the port's entry points: the volume build and
+    the SDF fit (the default route), then the exact route.  With
+    ``save_volume`` (a path), the scan problem, its volume and the SDF
+    fit's result are written there as one ``.npz`` for
+    ``tests/scan_fit_vs_jax.py``."""
+    import torch
+
+    from bodyfitting_torch.fitting import body_fitting as bf
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.losses.priors import synthetic_gmm_prior
+    from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.ops import kernels as K
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    model = bm.spin_joint_mapper_for_smpl(bm.synthetic_model(
+        "smpl", num_verts=size["num_verts"], mesh="sphere", seed=0,
+        device=device))
+    prior = synthetic_gmm_prior(device=device)
+    c2ws, Ks, kps, sv, sf = make_scan_problem(
+        model, size["n_views"], size["imsize"], size["subdivisions"], seed=0)
+    V = model.num_verts
+    log(f"scan problem: {time.perf_counter() - t0:.1f} s; SMPL {V} vertices "
+        f"{model.faces.shape[0]} faces; scan {len(sv)} vertices {len(sf)} "
+        f"faces, height {np.ptp(sv[:, 1]):.3f}; {size['n_views']} keypoint "
+        f"views at {size['imsize']}^2")
+    config = smplify.FitConfig(use_mesh=True, displacement=True,
+                               num_iters=size["num_iters"],
+                               imsize=float(size["imsize"]))
+    gate = config.num_iters // config.stage_gate_den
+    R = size["sdf_resolution"]
+    n_chunks = -(-R ** 3 // 65536)
+
+    # --- main path, SDF route: the volume build, then the fit
+    calls = []
+    sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with nearest_ops(recorder(calls)):
+        obs = bf.build_observations(
+            c2ws, Ks, kps, use_hand_face=False, scan_verts=sv, scan_faces=sf,
+            sdf_resolution=R, device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    betas, poses = bf.hmr_init(None, c2ws[0])
+    init = bf.init_params_from_hmr(model, betas, poses)
+    t0 = time.perf_counter()
+    params, result, losses = bf.fit_scan(model, config, obs, init, prior)
+    sync(device)
+    fit_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    log(f"scan SDF path: volume {R}^3 in {len(calls)} chunks built in "
+        f"{build_s:.3f} s; fit {config.num_iters} + {config.num_iters} "
+        f"iterations in {fit_s:.3f} s wall; launches {launches}")
+    assert len(calls) == n_chunks, len(calls)
+    if on_card:
+        assert launches["nearest_d2_idx"] == n_chunks, launches
+
+    losses = losses.cpu().numpy()
+    body, dtrace = losses[:config.num_iters], losses[config.num_iters:]
+    assert np.isfinite(losses).all(), "non-finite loss"
+    disp = result["displacement"]
+    assert disp.shape == (V, 3) and torch.isfinite(disp).all()
+    models = smplify.loss_models(model, config)
+    pc = [float(smplify.fit_loss(models[0], config, params, obs, s, prior,
+                                 joints_model=models[1])[1]["pc_loss"][0])
+          for s in (gate, gate + 1)]
+    k = min(50, len(dtrace) // 3)
+    log(f"scan SDF fit: loss at step 0 / the gate / final body step "
+        f"{body[0]:.1f} / {body[gate]:.1f} / {body[-1]:.1f}; point-to-scan "
+        f"term at the final state, step {gate} / {gate + 1}: {pc[0]:.4f} / "
+        f"{pc[1]:.4f}; displacement loss, mean of the first / last {k} "
+        f"steps {dtrace[:k].mean():.6f} / {dtrace[-k:].mean():.6f}; mean "
+        f"|displacement| {float(disp.norm(dim=1).mean()) * 1e3:.2f} mm")
+    assert pc[0] == 0.0 and pc[1] > 0.0, "point-to-scan term not live"
+    assert dtrace[-k:].mean() < dtrace[:k].mean(), \
+        "the displacement stage did not descend"
+    # the SMPL+D surface lies closer to the scan than the body alone
+    from bodyfitting_torch.ops.nearest import nearest_points
+
+    def residual_mm(v):
+        closest, _ = nearest_points(v, obs.scan_verts[0], obs.scan_faces[0])
+        return float((v - closest).norm(dim=1).mean()) * 1e3
+
+    r_body = residual_mm(result["vertices"])
+    r_disp = residual_mm(result["vertices"] + disp)
+    log(f"scan SDF fit: mean distance of the fitted vertices to the scan "
+        f"{r_body:.2f} mm for the body, {r_disp:.2f} mm with the "
+        f"displacements (exact query)")
+    assert r_disp < r_body, "the displacements moved away from the scan"
+    if save_volume:
+        vol = obs.scan_volume
+        np.savez(save_volume, c2ws=np.stack(c2ws), Ks=np.stack(Ks),
+                 keypoints=np.stack([k["pose"] for k in kps]),
+                 scan_verts=sv, scan_faces=sf.astype(np.int32),
+                 **{f"vol.{k}": getattr(vol, k)[0].cpu().numpy()
+                    for k in ("dist", "face_idx", "origin")},
+                 **{"vol.spacing": vol.spacing[0].cpu().numpy(),
+                    "fit.losses": losses, "fit.vertices":
+                    result["vertices"].cpu().numpy(),
+                    "fit.displacement": disp.cpu().numpy(),
+                    "fit.residual_mm": np.array([r_body, r_disp]),
+                    "size": np.array([size["num_verts"], size["imsize"]])})
+        log(f"scan problem, volume and SDF fit saved to {save_volume}")
+    chunk = calls[len(calls) // 2]
+    chunk_err = check_nearest(*chunk, "volume chunk")
+    sdf_ms = scan_step_times(model, config, obs, prior, init,
+                             result["vertices"], device, n_time, profile)
+    log(f"scan SDF step time on {smi}: {sdf_ms[0]:.3f} ms/iteration before "
+        f"the gate, {sdf_ms[1]:.3f} after it, {sdf_ms[2]:.3f} per "
+        f"displacement iteration ({n_time} steps each, host clock)")
+
+    # --- the exact route at full width and cut depth
+    ecfg = dataclasses.replace(config, mesh_loss_impl="exact",
+                               num_iters=size["exact_iters"])
+    egate = ecfg.num_iters // ecfg.stage_gate_den
+    eobs = dataclasses.replace(obs, scan_volume=None)
+    sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    eparams, eresult, elosses = bf.fit_scan(model, ecfg, eobs, init, prior)
+    sync(device)
+    exact_s = time.perf_counter() - t0
+    elaunches = K.launch_counts()
+    expect = (ecfg.num_iters - egate - 1) + ecfg.num_iters
+    log(f"scan exact path: {ecfg.num_iters} + {ecfg.num_iters} iterations, "
+        f"gate {egate}, in {exact_s:.3f} s wall; launches {elaunches} (one "
+        f"per query, both passes; expected {expect})")
+    assert np.isfinite(elosses.cpu().numpy()).all()
+    if on_card:
+        assert elaunches["nearest_d2_idx"] == expect, elaunches
+    # loss and gradient at the final state, kernel vs plain, body and
+    # displacement stages
+    emodels = smplify.loss_models(model, ecfg)
+    args = (emodels, ecfg, eparams, eobs, prior, ecfg.num_iters - 1)
+    lk, gk = loss_and_grads(*args)
+    with nearest_ops(lambda fn: K.nearest_d2_idx_plain):
+        lp, gp = loss_and_grads(*args)
+    body_loss_err = float(((lk - lp).abs() / lp.abs()).max())
+    top = max(float(g.abs().max()) for g in gp if g.numel())
+    body_grad_err = max(float((a - b).abs().max())
+                        for a, b in zip(gk, gp) if a.numel()) / top
+    disp_loss, _, _ = smplify.displacement_problem(
+        model, ecfg, eobs, eresult["vertices"])
+    dstate = eresult["displacement"]
+    qcalls = []
+
+    def disp_loss_grad():
+        d = dstate.detach().clone().requires_grad_(True)
+        loss = disp_loss(d)
+        (g,) = torch.autograd.grad(loss, [d])
+        return loss.detach(), g
+
+    with nearest_ops(recorder(qcalls)):
+        dlk, dgk = disp_loss_grad()
+    with nearest_ops(lambda fn: K.nearest_d2_idx_plain):
+        dlp, dgp = disp_loss_grad()
+    disp_loss_err = float((dlk - dlp).abs() / dlp.abs())
+    disp_grad_err = float((dgk - dgp).abs().max() / dgp.abs().max())
+    log(f"check: exact fit at its final state, kernel vs plain on the card: "
+        f"body loss rel err {body_loss_err:.3e}, gradient {body_grad_err:.3e} "
+        f"of the largest entry; displacement loss rel err "
+        f"{disp_loss_err:.3e}, gradient {disp_grad_err:.3e} (tol 1e-5: the "
+        f"queries agree exactly, the vertex normals sum with atomics)")
+    assert max(body_loss_err, body_grad_err, disp_loss_err,
+               disp_grad_err) <= 1e-5
+    query_err = check_nearest(*qcalls[0], "in-fit query")
+    return dict(launches=launches["nearest_d2_idx"],
+                exact_launches=elaunches["nearest_d2_idx"],
+                chunk=chunk, query=qcalls[0],
+                max_abs_err=max(chunk_err, query_err))
+
+
+def nearest_row(scan):
+    """The kernel's timing at the volume chunk and the in-fit query.  The
+    bound is what the function needs: its bytes, or the operations of the
+    pairs that per-face bounding boxes cannot rule out
+    (:func:`box_survivors`), whichever takes longer.  The all-pairs
+    figure, the work of the port's brute-force sweep, is printed beside
+    it."""
+    from bodyfitting_torch.ops import kernels as K
+
+    rows = {}
+    for what, (args, kw), reps in (("volume chunk", scan["chunk"], 3),
+                                   ("in-fit query", scan["query"], 10)):
+        pts, tri = args[0], args[1]
+        Q, F = pts.shape[0], tri.shape[0]
+        ms = cuda_ms(lambda: K.nearest_d2_idx(*args, **kw), reps=reps,
+                     warmup=1)
+        plain = cuda_ms(lambda: K.nearest_d2_idx_plain(*args, **kw), reps=1,
+                        warmup=0)
+        d2, _ = K.nearest_d2_idx(*args, **kw)   # equal to the plain d2
+        pairs = box_survivors(pts, tri, d2, kw["tie_verts"])
+        # bytes: points, triangles, tie vertices in; d2 and idx out
+        b, by = bound_ms(nbytes(*args, *kw.values()) + Q * 8,
+                         NEAREST_OPS_PER_PAIR * pairs)
+        brute = NEAREST_OPS_PER_PAIR * Q * F / F32_FLOPS_PER_S * 1e3
+        log(f"nearest_d2_idx {what} Q {Q} F {F}: {ms:.3f} ms, plain "
+            f"{plain:.3f} ms, bound {b:.5f} ms ({by}; {pairs} pairs that "
+            f"face boxes cannot rule out, {pairs / Q:.2f} a query); "
+            f"all-pairs (brute-force) operations bound {brute:.3f} ms; no "
+            f"single PyTorch call computes point-triangle distance "
+            f"(library: none)")
+        rows[what] = dict(Q=Q, F=F, ms=ms, plain_ms=plain, bound_ms=b,
+                          bound_by=by, box_pairs=pairs,
+                          all_pairs_bound_ms=brute)
+    main, fit = rows["volume chunk"], rows["in-fit query"]
+    return dict(
+        name="nearest_d2_idx", route="cuda",
+        source=SOURCES["nearest_d2_idx"],
+        replaces=TPU_KERNELS["nearest_d2_idx"],
+        launches=scan["launches"], max_abs_err=scan["max_abs_err"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        shape=f"volume chunk Q {main['Q']} F {main['F']}",
+        box_pairs=main["box_pairs"],
+        all_pairs_bound_ms=main["all_pairs_bound_ms"],
+        in_fit=dict(fit, launches=scan["exact_launches"]),
+    )
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace 20 post-gate steps with torch.profiler")
+                    help="trace 20 post-gate steps of the mask fit, and 20 "
+                    "post-gate and 20 displacement steps of the SDF scan "
+                    "fit, with torch.profiler")
+    ap.add_argument("--save-volume", metavar="NPZ",
+                    help="write the scan problem, its 96^3 volume and the "
+                    "SDF fit's result here (for tests/scan_fit_vs_jax.py)")
     cli = ap.parse_args()
 
     t_start = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     sys.path.insert(0, REPO)
     import torch
 
@@ -694,6 +1143,9 @@ def main():
     state = phase_main_path(cli.profile)
     phase_checks(state)
     table = phase_kernels(state)
+    scan = phase_scan(smi=smi, profile=cli.profile,
+                      save_volume=cli.save_volume)
+    table.append(nearest_row(scan))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -277,9 +277,17 @@ def test_build_observations_matches_jax():
                                mask_crop=True, mask_crop_hw=(40, 96),
                                device="cpu")
     assert t.mask_view_valid.sum() == 0 and t.contour_valid.sum() == 0
-    with pytest.raises(NotImplementedError):
-        tbf.build_observations(c2ws, Ks, kps, True, device="cpu",
-                               scan_verts=np.zeros((3, 3)))
+    # a scan frame: the scan fields, and the scale prior from its height
+    sv = np.array([[0, 0, 0], [0, 1.8, 0], [1, 0, 0]], np.float32)
+    sf = np.array([[0, 1, 2]], np.int32)
+    t = tbf.build_observations(c2ws, Ks, kps, True, device="cpu",
+                               scan_verts=sv, scan_faces=sf, build_sdf=False)
+    j = jbf.build_observations(c2ws, Ks, kps, True, scan_verts=sv,
+                               scan_faces=sf, build_sdf=False)
+    for name in ("scan_verts", "scan_faces", "scan_height",
+                 "constant_scale"):
+        np.testing.assert_array_equal(getattr(t, name)[0].numpy(),
+                                      np.asarray(getattr(j, name)))
 
 
 def test_fit_frames_batched_and_later_options():
@@ -295,14 +303,18 @@ def test_fit_frames_batched_and_later_options():
     # the initial state is not modified by the fit
     assert torch.equal(init[0].body.body_pose,
                        torch.zeros_like(init[0].body.body_pose))
-    for bad in (dict(use_mesh=True), dict(displacement=True)):
-        with pytest.raises(NotImplementedError):
-            tfit.fit(tm, tfit.FitConfig(num_iters=1, **bad),
-                     tfit.concat_frames(obs), tfit.concat_frames(init), prior)
-    # JAX compilation options and the scan term's options are refused,
+    # the scan term needs a scan; displacement without it is a no-op, as
+    # in the JAX package
+    with pytest.raises(ValueError):
+        tfit.fit(tm, tfit.FitConfig(num_iters=1, use_mesh=True),
+                 tfit.concat_frames(obs), tfit.concat_frames(init), prior)
+    _, res, tr = tfit.fit(tm, tfit.FitConfig(num_iters=1, displacement=True),
+                          tfit.concat_frames(obs), tfit.concat_frames(init),
+                          prior)
+    assert "displacement" not in res and tr.shape == (N_FRAMES, 1)
+    # JAX compilation options and unknown scan-term routes are refused,
     # not ignored
-    for bad in (dict(remat_forward=True), dict(scan_unroll=4)):
+    for bad in (dict(remat_forward=True), dict(scan_unroll=4),
+                dict(mesh_loss_impl="approximate")):
         with pytest.raises(ValueError):
             tfit.FitConfig(**bad)
-    with pytest.raises(NotImplementedError):
-        tfit.FitConfig(mesh_loss_impl="exact")

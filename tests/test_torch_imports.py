@@ -49,8 +49,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys, bodyfitting_torch, chip_smoke\n"
         "from bodyfitting_torch import convert\n"
         "from bodyfitting_torch.fitting import body_fitting, smplify\n"
-        "from bodyfitting_torch.losses import keypoints, priors, silhouette\n"
-        "from bodyfitting_torch.ops import kernels\n"
+        "from bodyfitting_torch.losses import keypoints, mesh, priors, "
+        "silhouette\n"
+        "from bodyfitting_torch.ops import kernels, nearest, sdf\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bodyfitting_tpu')]\n"
         "assert not bad, bad\n"
@@ -98,12 +99,17 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="different devices"):
         K.rows_scatter_add(torch.zeros((1, 3), dtype=torch.int32),
                            torch.empty((1, 3, 2), device="meta"), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.nearest_d2_idx(torch.empty((2, 3), device="meta"),
+                         torch.empty((1, 3, 3), device="meta"))
     K.reset_launch_counts()
     K.contour_match_full(torch.zeros(1, 2, 2), torch.zeros(1, 3, 2),
                          torch.ones(1, 3), torch.ones(1, 3))
+    K.nearest_d2_idx(torch.zeros(2, 3), torch.ones(1, 3, 3))
     assert K.launch_counts() == {"bilinear_cov_grads": 0,
                                  "contour_match_full": 0,
-                                 "rows_scatter_add": 0}
+                                 "rows_scatter_add": 0,
+                                 "nearest_d2_idx": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -44,8 +44,11 @@ def torch_params(jax_params, batched=False):
     )
 
 
-def torch_obs(jax_obs, batched=False):
+def torch_obs(jax_obs, batched=False, dtype=None):
     from bodyfitting_torch.convert import observations_from_numpy
 
-    return observations_from_numpy(arrays_of(jax_obs), batched=batched,
+    fields = arrays_of(jax_obs)
+    if fields.get("scan_volume") is not None:
+        fields["scan_volume"] = arrays_of(fields["scan_volume"])
+    return observations_from_numpy(fields, batched=batched, dtype=dtype,
                                    device="cpu")

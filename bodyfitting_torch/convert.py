@@ -90,6 +90,46 @@ def distance_volume_from_numpy(fields: dict, batched: bool = False,
     return DistanceVolume(**kw)
 
 
+def lbam_state_dict_from_flax(variables: dict) -> dict:
+    """The released LBAM checkpoint's state dict (numpy arrays by key) from
+    the JAX package's Flax LBAM variables, handed over as nested dicts of
+    numpy arrays: the inverse of ``models/inpaint.py:convert_lbam_torch``.
+    Convolution kernels HWIO -> OIHW, transposed-convolution kernels
+    (k, k, in, out) -> (in, out, k, k), gaussian gate scalars as they
+    are."""
+    params = variables.get("params", variables)
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        name, sub, leaf = path[0], path[1], path[-1]
+        t = np.array(node, np.float32)
+        if name.startswith("ec"):
+            if sub == "gauss":
+                out[f"{name}.conv.activationFuncG_A.{leaf}"] = t
+            else:
+                out[f"{name}.conv.{sub}.weight"] = t.transpose(3, 2, 0, 1)
+        elif name.startswith("reverseConv"):
+            if sub == "gauss":
+                out[f"{name}.activationFuncG_A.{leaf}"] = t
+            else:
+                out[f"{name}.reverseMaskConv.weight"] = t.transpose(
+                    3, 2, 0, 1)
+        elif name == "dc7":
+            out["dc7.weight"] = t.transpose(2, 3, 0, 1)
+        elif name.startswith("dc"):
+            out[f"{name}.conv.weight"] = t.transpose(2, 3, 0, 1)
+        else:
+            raise KeyError("/".join(path))
+
+    for k, v in params.items():
+        walk(v, (k,))
+    return {k: np.array(v, order="C") for k, v in out.items()}
+
+
 def observations_from_numpy(fields: dict, batched: bool = False,
                             dtype=None, device=None) -> Observations:
     """:class:`Observations` from a JAX ``Observations``' array fields

@@ -18,13 +18,19 @@ from bodyfitting_torch.ops.kernels.nearest import (
     nearest_d2_idx,
     nearest_d2_idx_plain,
 )
+from bodyfitting_torch.ops.kernels.raster import (
+    rasterize_attrs,
+    rasterize_attrs_plain,
+    rasterize_zbuf,
+    rasterize_zbuf_plain,
+)
 from bodyfitting_torch.ops.kernels.rows_scatter import (
     rows_scatter_add,
     rows_scatter_add_plain,
 )
 
 KERNELS = (bilinear_cov_grads, contour_match_full, rows_scatter_add,
-           nearest_d2_idx)
+           nearest_d2_idx, rasterize_zbuf, rasterize_attrs)
 
 
 def reset_launch_counts() -> None:
@@ -41,5 +47,7 @@ __all__ = [
     "contour_match_full", "contour_match_full_plain", "contour_min_idx",
     "rows_scatter_add", "rows_scatter_add_plain",
     "nearest_d2_idx", "nearest_d2_idx_plain",
+    "rasterize_zbuf", "rasterize_zbuf_plain",
+    "rasterize_attrs", "rasterize_attrs_plain",
     "KERNELS", "reset_launch_counts", "launch_counts",
 ]

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("bilinear", "contour_match", "nearest", "rows_scatter")
+SOURCES = ("bilinear", "contour_match", "nearest", "raster", "rows_scatter")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -46,6 +46,23 @@ Phases; the first failure ends the run with a non-zero exit code:
 7. the kernel's times at the volume chunk and the in-fit query, beside
    its bound: the bytes it must move, or the operations of the pairs
    that per-face bounding boxes cannot rule out on this data.
+8. texture stage: RenderPeople's prep renders and ``run_texfit`` on the
+   scan phase's scan and SDF fit (SMPL vertices plus displacements),
+   with the ``--auto_uv`` per-face atlases (the licensed UV template is
+   not in the repository).  The scan gets a 2048^2 atlas baked from a
+   smooth seeded colour field (one ``rasterize_zbuf`` launch); 8 ring
+   views at 512^2 (8 launches); ``fit_texture`` with
+   ``TextureFitConfig()``: 200 iterations over 128 unique poses, 256
+   ``rasterize_attrs`` launches; the 1024^2 atlas raster (one launch),
+   hole fill, the grey-texel unseen mask, diffusion inpainting, LBAM
+   with seeded weights, the displacement bake.  Counters zeroed around
+   the stage.  Checks: finite losses, every view covered, the ring-view
+   L1 of the fitted texture below the grey one's, both kernels equal to
+   their plain versions (depth and attributes bitwise, face indices
+   exactly) at a scan view and at a scan and a SMPL pose, LBAM on the
+   card vs the CPU at 256^2, a small texture fit card vs CPU; then both
+   kernels timed beside their bound (bytes, or 25 operations a pixel-face
+   pair whose face box holds the pixel centre).
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -87,12 +104,16 @@ TPU_KERNELS = {
     "contour_match_full": "bodyfitting_tpu/ops/pallas_kernels.py:1620",
     "rows_scatter_add": "bodyfitting_tpu/ops/pallas_kernels.py:1738",
     "nearest_d2_idx": "bodyfitting_tpu/ops/pallas_kernels.py:49",
+    "rasterize_zbuf": "bodyfitting_tpu/ops/pallas_kernels.py:445",
+    "rasterize_attrs": "bodyfitting_tpu/ops/pallas_kernels.py:641",
 }
 SOURCES = {
     "bilinear_cov_grads": "bodyfitting_torch/ops/csrc/bilinear.cu",
     "contour_match_full": "bodyfitting_torch/ops/csrc/contour_match.cu",
     "rows_scatter_add": "bodyfitting_torch/ops/csrc/rows_scatter.cu",
     "nearest_d2_idx": "bodyfitting_torch/ops/csrc/nearest.cu",
+    "rasterize_zbuf": "bodyfitting_torch/ops/csrc/raster.cu",
+    "rasterize_attrs": "bodyfitting_torch/ops/csrc/raster.cu",
 }
 
 
@@ -1072,7 +1093,12 @@ def phase_scan(size=SCAN_PATH, device="cuda", n_time=40, smi="",
     return dict(launches=launches["nearest_d2_idx"],
                 exact_launches=elaunches["nearest_d2_idx"],
                 chunk=chunk, query=qcalls[0],
-                max_abs_err=max(chunk_err, query_err))
+                max_abs_err=max(chunk_err, query_err),
+                texture_input=dict(
+                    scan_verts=sv, scan_faces=sf,
+                    smpl_faces=model.faces.cpu().numpy(),
+                    vertices=result["vertices"].cpu().numpy(),
+                    displacement=disp.cpu().numpy()))
 
 
 def nearest_row(scan):
@@ -1123,6 +1149,332 @@ def nearest_row(scan):
     )
 
 
+# ---------------------------------------------------------------------------
+# The texture stage: RenderPeople's scan-view renders and UV texture fit
+# ---------------------------------------------------------------------------
+
+# The texture stage's shape: RenderPeople's prep renders (--viewnum 8
+# --load_size 512 --white_bkgd) and texfit task (TextureFitConfig()
+# defaults: 1024^2 texture, 512^2 renders, 200 Adam iterations over 18
+# ring views x 5 cycles, then sphere views; the --auto_uv atlas), of the
+# scan phase's 219,008-face scan, textured with a 2048^2 atlas.
+TEXTURE_PATH = dict(scan_tex_size=2048, viewnum=8, imgsize=512, fit={})
+
+# per pixel-face pair whose face box holds the pixel centre: the 4 box
+# comparisons, the 3 edge functions (2 differences, 2 products and a
+# difference each) and the 6 sign tests of the inside test
+RASTER_OPS_PER_PAIR = 25
+
+
+def colour_field(verts, seed=0):
+    """A smooth seeded RGB field over the vertices, in [0.15, 0.85]."""
+    rng = np.random.default_rng(seed)
+    freq = rng.uniform(3.0, 9.0, size=(3, 3))
+    phase = rng.uniform(0.0, 2 * np.pi, size=3)
+    return (0.5 + 0.35 * np.sin(verts @ freq.T + phase)).astype(np.float32)
+
+
+def box_pairs(face_px, face_z, size):
+    """The pixel-face pairs whose face's pixel box holds the pixel centre,
+    over the faces that can win (front, corners finite)."""
+    import torch
+
+    live = (face_z > 1e-9).all(1) & torch.isfinite(face_px).all(2).all(1)
+    lo = face_px[live].amin(1).double()
+    hi = face_px[live].amax(1).double()
+    first = torch.clamp(torch.ceil(lo - 0.5), min=0)
+    last = torch.clamp(torch.floor(hi - 0.5), max=size - 1)
+    n = torch.clamp(last - first + 1, min=0)
+    return int((n[:, 0] * n[:, 1]).sum())
+
+
+def check_raster(kind, args, size, what):
+    """One kernel against its plain version on the same inputs: depth and
+    attributes bitwise, face indices exactly.  Returns the plain version's
+    ms (one call; device time on the card) and the max abs error."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+
+    got = getattr(K, kind)(*args, size)
+    ref = []
+
+    def run_plain():
+        ref.append(getattr(K, f"{kind}_plain")(*args, size))
+
+    if args[0].is_cuda:
+        plain_ms = cuda_ms(run_plain, reps=1, warmup=0)
+    else:
+        plain_ms = steps_ms(lambda _: run_plain(), range(1), "cpu")
+    ref = ref[0]
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in zip(got, ref))
+    log(f"{kind} {what}: F {args[0].shape[0]} at {size}^2, "
+        f"{int((got[1] >= 0).sum())} pixels covered: depth"
+        f"{', attributes' if len(got) == 3 else ''} bitwise and face_idx "
+        f"exactly equal to the plain version: {same} (tol: exact)")
+    assert same, f"{kind} differs from its plain version ({what})"
+    return plain_ms, err
+
+
+def phase_texture(scan, size=TEXTURE_PATH, device="cuda", smi="",
+                  check_devices=("cuda", "cpu")):
+    """The texture stage through the port's entry points, as the
+    RenderPeople app's prep and ``run_texfit`` run it, on the scan phase's
+    scan and SDF fit: the textured scan, its ring-view renders, the texture
+    fit, and the atlas work after it (coverage, hole fill, unseen mask,
+    diffusion and LBAM inpainting, displacement bake)."""
+    import torch
+
+    from bodyfitting_torch.fitting import texture as tf
+    from bodyfitting_torch.models.inpaint import Inpainter
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops import rasterize as rz
+    from bodyfitting_torch.utils.uv_unwrap import per_face_atlas
+
+    on_card = torch.device(device).type == "cuda"
+    inp = scan["texture_input"]
+    sv, sf = inp["scan_verts"], inp["scan_faces"]
+    smpl_f = inp["smpl_faces"]
+    verts = inp["vertices"] + inp["displacement"]
+    config = tf.TextureFitConfig(**size["fit"])
+    uvs, fu = per_face_atlas(len(sf))
+    scan_face_uvs = uvs[fu]
+    suv, sfu = per_face_atlas(len(smpl_f))
+    smpl_face_uvs = suv[sfu]
+    colours = colour_field(sv)
+    center, _, dist = tf.scene_bounds(sv)
+    poses = tf.training_pose_schedule(config, center, dist)
+    uniq, index = np.unique(poses.reshape(len(poses), -1), axis=0,
+                            return_inverse=True)
+    n_uniq = len(uniq)
+    times = {}
+
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t_stage = time.perf_counter()
+    # 1. the textured scan: a 2048^2 atlas baked from the colour field
+    tex_map, tex_cov = tf.bake_displacement_map(
+        scan_face_uvs, sf, colours, size["scan_tex_size"], device=device)
+    scan_tex = tex_map + 0.5 * (1.0 - tex_cov)[..., None]
+    # 2. the prep's ring-view renders
+    sync(device)
+    t0 = time.perf_counter()
+    imgs, masks, w2cs, Ks = tf.render_scan_views(
+        sv, sf, scan_face_uvs, scan_tex, imgsize=size["imgsize"],
+        viewnum=size["viewnum"], white_bkgd=True, device=device)
+    times["views"] = time.perf_counter() - t0
+    # 3. the texture fit (--auto_uv atlas, TextureFitConfig)
+    sync(device)
+    t0 = time.perf_counter()
+    tex, losses = tf.fit_texture(verts, smpl_f, smpl_face_uvs, sv, sf,
+                                 scan_face_uvs, scan_tex, config,
+                                 device=device)
+    sync(device)
+    times["fit"] = time.perf_counter() - t0
+    # 4. after the fit, as run_texfit
+    t0 = time.perf_counter()
+    uv_raster = tf.rasterize_uv_atlas(smpl_face_uvs, config.tex_img_size,
+                                      device=device)
+    coverage = rz.render_silhouette(uv_raster).cpu().numpy()
+    img = tf.fill_texture_holes(tex.cpu().numpy(), coverage)
+    grey = np.abs(img - 128.0 / 255.0).max(-1) < 0.04
+    unseen = grey & (coverage > 0.5)
+    times["atlas_fill"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    img_diffused = tf.inpaint_unseen(img, unseen, device=device)
+    times["diffusion"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    net = Inpainter(seed=0, device=device)
+    sync(device)
+    times["lbam_weights"] = time.perf_counter() - t1
+    img_lbam = net((img * 255).astype(np.uint8),
+                   (unseen[..., None] * np.uint8(255)).repeat(3, -1))
+    times["lbam"] = time.perf_counter() - t1
+    dis_map, dis_cov = tf.bake_displacement_map(
+        smpl_face_uvs, smpl_f, inp["displacement"], config.tex_img_size,
+        raster=uv_raster, device=device)
+    dis8 = tf.displacement_map_to8b(dis_map, dis_cov)
+    sync(device)
+    times["stage"] = time.perf_counter() - t_stage
+    launches = K.launch_counts()
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB"
+            if on_card else "not measured")
+
+    log(f"texture stage: scan {len(sf)} faces, {size['scan_tex_size']}^2 "
+        f"atlas; {size['viewnum']} views at {size['imgsize']}^2; fit of "
+        f"{len(smpl_f)} SMPL faces, {config.iter_num} iterations, "
+        f"{n_uniq} unique poses, {config.render_img_size}^2 renders, "
+        f"{config.tex_img_size}^2 texture; launches {launches} "
+        f"(rasterize_attrs expected {2 * n_uniq}, rasterize_zbuf "
+        f"{size['viewnum'] + 2}); peak device memory {peak}")
+    log(f"texture stage wall: scan views {times['views']:.3f} s, texture fit "
+        f"{times['fit']:.3f} s, atlas raster + hole fill "
+        f"{times['atlas_fill']:.3f} s, diffusion inpainting "
+        f"{times['diffusion']:.3f} s, LBAM {times['lbam']:.3f} s (its "
+        f"seeded weights {times['lbam_weights']:.3f} s), whole "
+        f"stage {times['stage']:.3f} s (host clock, device drained; {smi})")
+    if on_card:
+        assert launches["rasterize_attrs"] == 2 * n_uniq, launches
+        assert launches["rasterize_zbuf"] == size["viewnum"] + 2, launches
+
+    # checks on the stage's outputs
+    losses = losses.cpu().numpy()
+    assert np.isfinite(losses).all(), "non-finite texture loss"
+    assert imgs.shape == (size["viewnum"], size["imgsize"], size["imgsize"],
+                          3) and imgs.dtype == np.uint8
+    cover = (masks > 0).reshape(len(masks), -1).mean(1)
+    log("scan-view mask coverage: " + " ".join(f"{c:.3f}" for c in cover))
+    assert (cover > 0).all(), "a scan view has no coverage"
+    for name, a in (("texture", img), ("diffused", img_diffused),
+                    ("lbam", img_lbam), ("displacement map", dis8)):
+        assert np.isfinite(a.astype(np.float64)).all(), name
+    assert img_lbam.shape == img.shape == (config.tex_img_size,) * 2 + (3,)
+    log(f"atlas coverage {coverage.mean():.3f}; unseen grey texels "
+        f"{int(unseen.sum())}; mean |texture - grey| "
+        f"{np.abs(img - 128 / 255).mean():.4f}")
+
+    # the map build and the Adam loop timed apart, and the ring-view L1
+    # of the grey and the fitted textures (outside the counted run)
+    dev = torch.device(device)
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    Kt = t(tf.default_K(config.render_img_size))
+    scene = (t(sv), t(sf).long(), t(scan_face_uvs), scan_tex, t(verts),
+             t(smpl_f).long(), t(smpl_face_uvs))
+    sync(device)
+    t0 = time.perf_counter()
+    maps = tf.texture_maps(t(uniq.reshape(-1, 4, 4)), Kt, scene,
+                           config.render_img_size)
+    sync(device)
+    times["maps"] = time.perf_counter() - t0
+    grey_tex = torch.full_like(tex, 128.0 / 255.0)
+    idx = [int(i) for i in np.asarray(index).reshape(-1)]
+    t0 = time.perf_counter()
+    tex2, _ = tf.adam_loop(config.lr, lambda t, k: tf.maps_loss(
+        t, maps[0][k], maps[1][k], maps[2][k]), grey_tex, idx)
+    sync(device)
+    times["adam_ms"] = (time.perf_counter() - t0) / len(idx) * 1e3
+    repeat = float((tex2 - tex).abs().max())
+    ring = idx[:config.round_views]
+    l1 = [sum(float(tf.maps_loss(t, maps[0][k], maps[1][k], maps[2][k]))
+              for k in ring) for t in (grey_tex, tex)]
+    log(f"texture fit parts: map build of {len(uniq)} poses {times['maps']:.3f}"
+        f" s; Adam loop {times['adam_ms']:.3f} ms/iteration (host clock); "
+        f"the fit's losses first/last {losses[0]:.1f}/{losses[-1]:.1f}; "
+        f"ring-view L1 over {len(ring)} poses: grey {l1[0]:.1f}, fitted "
+        f"{l1[1]:.1f}; the loop again on rebuilt maps: texture max abs "
+        f"diff {repeat:.3e}")
+    assert l1[1] < l1[0], "the fitted texture is no closer than grey"
+
+    # kernels against plain versions on the stage's inputs
+    rows = {}
+    s_px, s_fz = rz.project_faces(scene[0], scene[1], t(w2cs[0]), t(Ks[0]))
+    zargs = (s_px.contiguous(), s_fz.contiguous())
+    rows["rasterize_zbuf"] = (zargs, size["imgsize"], *check_raster(
+        "rasterize_zbuf", zargs, size["imgsize"], "scan view 0"),
+        "scan view")
+    w2c = t(uniq[0].reshape(4, 4))
+    for what, (v, f, u) in (("SMPL", scene[4:7]), ("scan", scene[0:3])):
+        px, fz = rz.project_faces(v, f, w2c, Kt)
+        aargs = (px.contiguous(), fz.contiguous(), u.contiguous())
+        rows["rasterize_attrs"] = (aargs, config.render_img_size,
+                                   *check_raster("rasterize_attrs", aargs,
+                                                 config.render_img_size,
+                                                 f"{what} pose 0"),
+                                   f"{what} pose")
+
+    table = []
+    for name, (args, isz, pms, err, what) in rows.items():
+        kern = getattr(K, name)
+        if on_card:
+            ms = cuda_ms(lambda: kern(*args, isz), reps=20, warmup=2)
+            wrap = cuda_ms(lambda: K.raster.work_items(args[0], args[1], isz,
+                                                       isz), reps=20, warmup=2)
+        else:
+            ms = steps_ms(lambda _: kern(*args, isz), range(1), device)
+            wrap = float("nan")
+        pairs = box_pairs(args[0], args[1], isz)
+        A = args[2].shape[2] if len(args) > 2 else 0
+        out_bytes = isz * isz * (8 + 4 * A)
+        b, by = bound_ms(nbytes(*args) + out_bytes, RASTER_OPS_PER_PAIR * pairs)
+        log(f"{name} {what} F {args[0].shape[0]} at {isz}^2: {ms:.4f} ms "
+            f"(the wrapper's pixel boxes and prefix sum {wrap:.4f} ms of it), "
+            f"plain {pms:.3f} ms, bound {b:.5f} ms ({by}; {pairs} pixel-face "
+            f"pairs in face boxes, {pairs / isz ** 2:.2f} a pixel), "
+            f"library: none (no PyTorch call rasterizes)")
+        table.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=TPU_KERNELS[name], launches=launches[name],
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+            library_ms=None, shape=f"{what} F {args[0].shape[0]} at {isz}^2",
+            box_pairs=pairs))
+
+    check_lbam_and_small_fit(check_devices)
+    return dict(table=table, launches=launches, times=times)
+
+
+def small_texture_fit(device):
+    """A cut-size texture fit: a 642-vertex sphere, its once-subdivided
+    copy as the scan with a 128^2 colour atlas, 64^2 renders, a 64^2
+    texture, 36 iterations."""
+    from bodyfitting_torch.fitting import texture as tf
+    from bodyfitting_torch.models.body_model import sphere_mesh
+    from bodyfitting_torch.utils.uv_unwrap import per_face_atlas
+
+    rng = np.random.default_rng(7)
+    v, f = sphere_mesh(642, rng)
+    sv, sf = subdivide(v, f.astype(np.int64))
+    v, sv = v.astype(np.float32), sv.astype(np.float32)
+    uvs, fu = per_face_atlas(len(sf))
+    suv, sfu = per_face_atlas(len(f))
+    tex, cov = tf.bake_displacement_map(uvs[fu], sf, colour_field(sv, 1),
+                                        128, device=device)
+    tex = tex + 0.5 * (1.0 - cov)[..., None]
+    cfg = tf.TextureFitConfig(tex_img_size=64, render_img_size=64,
+                              iter_num=36, round_views=6, round_view_iters=3,
+                              lr=2e-2)
+    out, losses = tf.fit_texture(v, f, suv[sfu], sv, sf, uvs[fu], tex, cfg,
+                                 device=device)
+    return out.cpu().numpy(), losses.cpu().numpy()
+
+
+def check_lbam_and_small_fit(devices=("cuda", "cpu")):
+    """LBAM on the card against the CPU at 256^2 (cuDNN without TF32), and
+    a cut-size texture fit on the card (kernels) against the CPU (plain
+    versions)."""
+    import torch
+
+    from bodyfitting_torch.models.inpaint import Inpainter
+
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 255, size=(256, 256, 3)).astype(np.uint8)
+    mask = np.zeros((256, 256, 3), np.uint8)
+    mask[60:140, 90:200] = 255
+    outs = [Inpainter(seed=0, device=d)(img, mask) for d in devices]
+    err = float(np.abs(outs[0] - outs[1]).max())
+    log(f"check: LBAM at 256^2, card vs CPU (cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}): max abs err {err:.3e} (tol "
+        f"2e-4: f32 convolutions summed in other orders over 13 levels)")
+    assert err <= 2e-4
+    fits = [small_texture_fit(d) for d in devices]
+    (ta, la), (tb, lb) = fits
+    rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    tmean = float(np.abs(ta - tb).mean())
+    tmax = float(np.abs(ta - tb).max())
+    log(f"check: 36-step small texture fit, card (kernels) vs CPU (plain): "
+        f"loss trace max rel err {rel:.3e} (tol 1e-3), texture mean abs "
+        f"diff {tmean:.3e} (tol 1e-4), max {tmax:.3e} (the projection's "
+        f"matrix products and the scatter-add of the texture gradient sum "
+        f"in other orders; Adam's normalised steps carry the last bits)")
+    assert np.isfinite(la).all() and rel <= 1e-3 and tmean <= 1e-4
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1146,6 +1498,8 @@ def main():
     scan = phase_scan(smi=smi, profile=cli.profile,
                       save_volume=cli.save_volume)
     table.append(nearest_row(scan))
+    texture = phase_texture(scan, smi=smi)
+    table.extend(texture["table"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 Marked ``gpu``: they skip where no CUDA device is present and run on the
 card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.
-Tolerances as in ``chip_smoke.py``: the sampler, the match and the
-nearest-point query round like their plain versions (built with
-``-fmad=false``), so they agree exactly;
+Tolerances as in ``chip_smoke.py``: the sampler, the match, the
+nearest-point query and the rasterizers round like their plain versions
+(built with ``-fmad=false``), so they agree exactly;
 the scatter is held to two launches being bitwise equal, and to the plain
 ``scatter_add_``, whose summation order differs, within 1e-6.
 """
@@ -137,6 +137,77 @@ def test_nearest_kernel_cull_changes_no_result(dev):
     assert torch.equal(d2, ref_d2) and torch.equal(idx, ref_i)
 
 
+def _mesh_faces(size):
+    """A closed sphere-like mesh (12,800 faces) seen by a pinhole camera
+    at ``size``², with its hidden back faces, plus the contract's edge
+    cases and random small triangles: ``(face_px, face_z)``."""
+    from bodyfitting_torch.models.body_model import sphere_mesh
+    from chip_smoke import subdivide
+    from torch_port_util import edge_case_faces
+
+    rng = np.random.default_rng(5)
+    v, f = sphere_mesh(1600, rng)
+    v, f = subdivide(v, f.astype(np.int64))
+    cam = v + [0.0, 0.0, 3.0]
+    px = cam[:, :2] / cam[:, 2:] * (1.2 * size) + size / 2
+    face_px, face_z = px[f], cam[f, 2]
+    e_px, e_z = edge_case_faces()
+    e_px = e_px * (size / 32.0)
+    c = rng.uniform(0, size, size=(3000, 1, 2))
+    r_px = c + rng.uniform(-3, 3, size=(3000, 3, 2))
+    r_z = rng.uniform(0.5, 6.0, size=(3000, 3))
+    r_px[1500:1600], r_z[1500:1600] = r_px[:100], r_z[:100]   # ties
+    return (np.concatenate([face_px, e_px, r_px]).astype(np.float32),
+            np.concatenate([face_z, e_z, r_z]).astype(np.float32))
+
+
+@pytest.mark.parametrize("size", [37, 128])
+def test_raster_kernels_match_plain(dev, size):
+    """``rasterize_zbuf`` and ``rasterize_attrs``: depth and attributes
+    bitwise, face indices exactly equal to the plain versions, on a mesh
+    with back faces, exact duplicates (ties), faces behind and straddling
+    the camera, a degenerate face and a NaN corner; F and the image size
+    are no multiple of the kernel's 256-face blocks or 16-pixel tiles."""
+    px, fz = _mesh_faces(size)
+    F = px.shape[0]
+    attrs = np.random.default_rng(6).uniform(size=(F, 3, 2)).astype(
+        np.float32)
+    p, z, a = _t(px, dev), _t(fz, dev), _t(attrs, dev)
+    zb, ab = K.rasterize_zbuf.launches, K.rasterize_attrs.launches
+    depth, fidx = K.rasterize_zbuf(p, z, size)
+    ref_d, ref_i = K.rasterize_zbuf_plain(p, z, size)
+    at, fi2, d2 = K.rasterize_attrs(p, z, a, size)
+    ref_a, ref_i2, ref_d2 = K.rasterize_attrs_plain(p, z, a, size)
+    torch.cuda.synchronize()
+    assert K.rasterize_zbuf.launches == zb + 1
+    assert K.rasterize_attrs.launches == ab + 1
+    assert torch.equal(fidx, ref_i) and torch.equal(depth, ref_d)
+    assert torch.equal(fi2, ref_i2) and torch.equal(d2, ref_d2)
+    assert torch.equal(at, ref_a)
+    assert torch.equal(fi2, fidx)
+    assert 0 < int((fidx >= 0).sum()) < size * size
+
+
+def test_raster_kernels_edge_cases(dev):
+    """Only the contract's edge cases, and no faces at all."""
+    from torch_port_util import edge_case_faces
+
+    px, fz = (_t(x, dev) for x in edge_case_faces())
+    for size in (35, 16, 1):
+        depth, fidx = K.rasterize_zbuf(px, fz, size)
+        ref = K.rasterize_zbuf_plain(px, fz, size)
+        torch.cuda.synchronize()
+        assert torch.equal(depth, ref[0]) and torch.equal(fidx, ref[1])
+    assert set(torch.unique(fidx).tolist()) <= {-1, 0, 1, 7}
+    empty = (torch.zeros((0, 3, 2), device=dev), torch.zeros((0, 3), device=dev))
+    depth, fidx = K.rasterize_zbuf(*empty, 20)
+    at, fi2, _ = K.rasterize_attrs(*empty, torch.zeros((0, 3, 2), device=dev),
+                                   20)
+    torch.cuda.synchronize()
+    assert (fidx == -1).all() and (fi2 == -1).all() and (at == 0).all()
+    assert (depth == K.raster.FAR).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     img = torch.zeros((1, 8, 8), device=dev)
     xy = torch.zeros((1, 4, 2), device=dev)
@@ -155,3 +226,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K.nearest_d2_idx(torch.zeros((4, 3), device=dev),
                          torch.zeros((2, 9), device=dev))
+    px, fz = torch.zeros((2, 3, 2), device=dev), torch.ones((2, 3), device=dev)
+    with pytest.raises(ValueError):
+        K.rasterize_zbuf(px.double(), fz.double(), 8)
+    with pytest.raises(ValueError):
+        K.rasterize_zbuf(px.reshape(2, 6), fz, 8)
+    with pytest.raises(ValueError):
+        K.rasterize_attrs(px, fz, torch.zeros((2, 2, 2), device=dev), 8)

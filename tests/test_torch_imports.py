@@ -48,10 +48,13 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, bodyfitting_torch, chip_smoke\n"
         "from bodyfitting_torch import convert\n"
-        "from bodyfitting_torch.fitting import body_fitting, smplify\n"
+        "from bodyfitting_torch.fitting import body_fitting, smplify, "
+        "texture\n"
         "from bodyfitting_torch.losses import keypoints, mesh, priors, "
         "silhouette\n"
-        "from bodyfitting_torch.ops import kernels, nearest, sdf\n"
+        "from bodyfitting_torch.models import inpaint\n"
+        "from bodyfitting_torch.ops import kernels, nearest, rasterize, sdf\n"
+        "from bodyfitting_torch.utils import uv_unwrap\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bodyfitting_tpu')]\n"
         "assert not bad, bad\n"
@@ -66,8 +69,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     from bodyfitting_torch import default_device
     from bodyfitting_torch.convert import fit_params_from_numpy
     from bodyfitting_torch.fitting import body_fitting as bf
+    from bodyfitting_torch.fitting import texture as tf
     from bodyfitting_torch.losses.priors import synthetic_gmm_prior
     from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.models.inpaint import Inpainter
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     eye = [np.eye(4, dtype=np.float32)]
@@ -78,6 +83,21 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         lambda: synthetic_gmm_prior(),
         lambda: bf.build_observations(eye, K, [None], True),
         lambda: fit_params_from_numpy({}, np.zeros(3), np.ones(1)),
+    ]
+    # the texture stage
+    quad = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    tri = np.array([[0, 1, 2]])
+    uv = np.full((1, 3, 2), 0.5, np.float32)
+    tex = np.zeros((4, 4, 3), np.float32)
+    calls += [
+        lambda: tf.render_scan_views(quad, tri, uv, tex, imgsize=8,
+                                     viewnum=1),
+        lambda: tf.fit_texture(quad, tri, uv, quad, tri, uv, tex),
+        lambda: tf.rasterize_uv_atlas(uv, 8),
+        lambda: tf.atlas_coverage_mask(uv, 8),
+        lambda: tf.bake_displacement_map(uv, tri, quad, 8),
+        lambda: tf.inpaint_unseen(tex, np.ones((4, 4), bool)),
+        lambda: Inpainter(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -102,14 +122,25 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         K.nearest_d2_idx(torch.empty((2, 3), device="meta"),
                          torch.empty((1, 3, 3), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.rasterize_zbuf(torch.empty((1, 3, 2), device="meta"),
+                         torch.empty((1, 3), device="meta"), 8)
+    with pytest.raises(ValueError, match="different devices"):
+        K.rasterize_attrs(torch.zeros((1, 3, 2)), torch.ones((1, 3)),
+                          torch.empty((1, 3, 2), device="meta"), 8)
     K.reset_launch_counts()
     K.contour_match_full(torch.zeros(1, 2, 2), torch.zeros(1, 3, 2),
                          torch.ones(1, 3), torch.ones(1, 3))
     K.nearest_d2_idx(torch.zeros(2, 3), torch.ones(1, 3, 3))
+    K.rasterize_zbuf(torch.zeros(1, 3, 2), torch.ones(1, 3), 8)
+    K.rasterize_attrs(torch.zeros(1, 3, 2), torch.ones(1, 3),
+                      torch.ones(1, 3, 2), 8)
     assert K.launch_counts() == {"bilinear_cov_grads": 0,
                                  "contour_match_full": 0,
                                  "rows_scatter_add": 0,
-                                 "nearest_d2_idx": 0}
+                                 "nearest_d2_idx": 0,
+                                 "rasterize_zbuf": 0,
+                                 "rasterize_attrs": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -52,3 +52,26 @@ def torch_obs(jax_obs, batched=False, dtype=None):
         fields["scan_volume"] = arrays_of(fields["scan_volume"])
     return observations_from_numpy(fields, batched=batched, dtype=dtype,
                                    device="cpu")
+
+
+def edge_case_faces():
+    """A near face over a far one, plus faces that must not win: behind
+    the camera, straddling it, degenerate, a NaN corner, duplicates."""
+    big = [[2.0, 2.0], [30.0, 3.0], [4.0, 29.0]]
+    px = np.array([
+        big,                                          # 0 far, covers much
+        [[6.0, 6.0], [20.0, 7.0], [7.0, 21.0]],       # 1 near
+        [[6.0, 6.0], [20.0, 7.0], [7.0, 21.0]],       # 2 duplicate of 1
+        [[1.0, 1.0], [31.0, 1.5], [1.5, 31.0]],       # 3 behind the camera
+        [[1.0, 1.0], [31.0, 1.5], [1.5, 31.0]],       # 4 straddles z = 0
+        [[3.0, 3.0], [15.0, 15.0], [27.0, 27.0]],     # 5 degenerate
+        [[np.nan, 5.0], [25.0, 5.0], [5.0, 25.0]],    # 6 NaN corner, nearest
+        [[10.0, 10.0], [18.0, 10.5], [10.5, 18.0]],   # 7 duplicate of 8
+        [[10.0, 10.0], [18.0, 10.5], [10.5, 18.0]],   # 8
+    ], np.float32)
+    fz = np.array([
+        [3.0, 3.0, 3.0], [2.0, 2.0, 2.0], [2.0, 2.0, 2.0],
+        [-1.0, -1.0, -1.0], [-0.5, 0.2, 0.2], [0.5, 0.5, 0.5],
+        [0.3, 0.3, 0.3], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0],
+    ], np.float32)
+    return px, fz

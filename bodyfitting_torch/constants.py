@@ -23,9 +23,14 @@ FACE_MAPPING = np.array(
 
 SMPLX_NUM_VERTS = 10475
 
+# ImageNet normalisation of the HMR input
+IMG_NORM_MEAN = (0.485, 0.456, 0.406)
+IMG_NORM_STD = (0.229, 0.224, 0.225)
+
 # GeneBody dataset facts
 GENEBODY_NUM_VIEWS = 48
 GENEBODY_MASK_FRAMES = (1, 7, 13, 19, 25, 31, 37, 43)
+GENEBODY_KEYFRAME = 25          # the view HMR initialises from
 GENEBODY_SCENE_SCALE = 0.3      # constant scale prior
 SMPL_NUM_VERTS = 6890
 

@@ -130,6 +130,46 @@ def lbam_state_dict_from_flax(variables: dict) -> dict:
     return {k: np.array(v, order="C") for k, v in out.items()}
 
 
+def hmr_state_dict_from_flax(variables: dict) -> dict:
+    """The reference HMR checkpoint's state dict (numpy arrays by key)
+    from the JAX package's Flax HMR variables (``params`` and
+    ``batch_stats``, handed over as nested dicts of numpy arrays): the
+    inverse of ``models/hmr.py:convert_torch_checkpoint``.  Convolution
+    kernels HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``."""
+    out = {}
+
+    def prefix(mods):
+        name = mods[0]
+        if name.startswith("layer") and "_" in name:
+            layer, block = name.split("_")
+            sub = {"downsample_conv": "downsample.0",
+                   "downsample_bn": "downsample.1"}.get(mods[1], mods[1])
+            return f"{layer}.{block}.{sub}"
+        return ".".join(mods)
+
+    def walk(node, path, col):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,), col)
+            return
+        t = np.array(node, np.float32)
+        p, leaf = prefix(path[:-1]), path[-1]
+        if col == "batch_stats":
+            key = "running_mean" if leaf == "mean" else "running_var"
+            out[f"{p}.{key}"] = t
+        elif leaf == "kernel":
+            out[f"{p}.weight"] = (t.transpose(3, 2, 0, 1) if t.ndim == 4
+                                  else t.T)
+        elif leaf == "scale":
+            out[f"{p}.weight"] = t
+        else:
+            out[f"{p}.bias"] = t
+
+    for col in ("params", "batch_stats"):
+        walk(variables.get(col, {}), (), col)
+    return {k: np.array(v, order="C") for k, v in out.items()}
+
+
 def observations_from_numpy(fields: dict, batched: bool = False,
                             dtype=None, device=None) -> Observations:
     """:class:`Observations` from a JAX ``Observations``' array fields

@@ -4,15 +4,19 @@ Counterpart of ``bodyfitting_tpu/fitting/body_fitting.py``: host-side
 data of one frame becomes an
 :class:`~bodyfitting_torch.fitting.smplify.Observations` with a frame axis
 of 1 (``build_observations``, with the scan and its distance volume for
-scan fits); a batch of frames is fitted in one staged optimization
-(``fit_frames_batched``), and one scan by ``fit_scan``.  ``hmr_init``
-gives the mean-pose initialisation; the HMR network waits for a later
-slice.
+scan fits); the keyframe's HMR network (or the mean pose) gives the
+initial parameters (``hmr_init``); a batch of frames is fitted in one
+staged optimization (``fit_frames_batched``), or jointly with temporal
+terms (``fit_sequence_batched``), and one scan by ``fit_scan``;
+``save_frame_outputs`` writes each frame's parameters, mesh and debug
+overlays.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,25 +36,81 @@ from bodyfitting_torch.ops import sdf
 from bodyfitting_torch.ops.rotations import rotmat_to_aa_np
 
 
-def hmr_init(image: Optional[np.ndarray], c2w: np.ndarray, bundle=None):
-    """Initial ``(betas [10], poses [72])`` (float32 numpy) for a fit: the
-    mean pose, with the global orientation rotated into the world frame
-    through the keyframe's camera-to-world rotation, as the JAX
-    ``hmr_init`` does without a network.  The HMR network (``bundle``)
-    waits for a later slice of the port and raises."""
-    if bundle is not None:
-        raise NotImplementedError("the HMR network waits for a later slice "
-                                  "of the port; pass bundle=None")
-    rotmat = np.broadcast_to(np.eye(3, dtype=np.float32), (24, 3, 3)).copy()
+@dataclasses.dataclass
+class HMRBundle:
+    """A loaded HMR network and its mean parameters."""
+
+    model: object = None
+    mean_params: Optional[tuple] = None
+
+    @staticmethod
+    def load(checkpoint_path: str, mean_params_path: Optional[str] = None,
+             device=None) -> "HMRBundle":
+        """The network on ``device`` (default ``cuda``) with the weights of
+        the torch checkpoint at ``checkpoint_path`` (the reference's own
+        keys); a path that does not exist raises."""
+        from bodyfitting_torch.models import hmr as hmr_mod
+
+        device = default_device(device)
+        if not os.path.exists(checkpoint_path):
+            raise FileNotFoundError(f"HMR checkpoint not found: "
+                                    f"{checkpoint_path}")
+        sd = torch.load(checkpoint_path, map_location="cpu",
+                        weights_only=False)
+        net = hmr_mod.HMR()
+        hmr_mod.load_state_dict_checked(net, sd)
+        mean = hmr_mod.load_mean_params(mean_params_path)
+        return HMRBundle(model=net.to(device), mean_params=mean)
+
+
+def preprocess_hmr_image(image: np.ndarray, input_res: int = 224):
+    """Resize (OpenCV's INTER_CUBIC, within one level: see
+    ``io.images.resize_cubic``) and ImageNet-normalise: ``[1, res, res,
+    3]`` float32, NHWC."""
+    from bodyfitting_torch.io.images import resize_cubic
+
+    img = resize_cubic(np.asarray(image, np.uint8), input_res, input_res)
+    img = img.astype(np.float32) / 255.0
+    img = (img - np.asarray(constants.IMG_NORM_MEAN)) / np.asarray(
+        constants.IMG_NORM_STD)
+    return img[None].astype(np.float32)
+
+
+def hmr_init(image: Optional[np.ndarray], c2w: np.ndarray,
+             bundle: Optional[HMRBundle] = None, stream=None):
+    """Initial ``(betas [10], poses [72])`` (float32 numpy) for a fit from
+    the keyframe: the HMR network's output when ``bundle`` and ``image``
+    are given, else the mean pose; either way the global orientation is
+    rotated into the world frame through the keyframe's camera-to-world
+    rotation.  With ``stream`` (a CUDA stream) the network runs there,
+    off the stream a fit is running on."""
+    if bundle is not None and bundle.model is not None and image is not None:
+        from bodyfitting_torch.models.hmr import hmr_forward
+
+        dev = next(bundle.model.parameters()).device
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            x = torch.as_tensor(preprocess_hmr_image(image), device=dev)
+            rotmat, betas, _ = hmr_forward(bundle.model, x,
+                                           bundle.mean_params)
+            rotmat = rotmat[0].cpu().numpy()
+            betas = betas[0].cpu().numpy()
+    else:
+        rotmat = np.broadcast_to(np.eye(3, dtype=np.float32),
+                                 (24, 3, 3)).copy()
+        betas = np.zeros(10, np.float32)
+    rotmat = np.array(rotmat)
     rotmat[0] = np.asarray(c2w)[:3, :3] @ rotmat[0]
     poses = rotmat_to_aa_np(rotmat).reshape(-1)
-    return np.zeros(10, np.float32), poses.astype(np.float32)
+    return betas.astype(np.float32), poses.astype(np.float32)
 
 
-def init_params_from_hmr(model, betas: np.ndarray,
-                         poses: np.ndarray) -> smplify.FitParams:
+def init_params_from_hmr(model, betas: np.ndarray, poses: np.ndarray,
+                         device=None) -> smplify.FitParams:
     """``hmr_init``'s output as the initial :class:`FitParams` of one
-    frame (betas cut or zero-padded to the model's count)."""
+    frame (betas cut or zero-padded to the model's count), on ``device``
+    (default: the model's)."""
     nb = model.num_body_joints
     body_pose = poses[3:3 + 3 * nb]
     init_betas = betas
@@ -61,7 +121,7 @@ def init_params_from_hmr(model, betas: np.ndarray,
         ]
     return smplify.FitParams.init(
         model, init_betas=init_betas, init_global_orient=poses[:3],
-        init_body_pose=body_pose,
+        init_body_pose=body_pose, device=device,
     )
 
 
@@ -239,6 +299,114 @@ def fit_frames_batched(
     obs = smplify.concat_frames(list(obs_list))
     init = smplify.concat_frames(list(init_list))
     return smplify.fit(model, config, obs, init, pose_prior_fn)
+
+
+def smplx_init_from_smpl(smplx_model, smpl_result: dict,
+                         device=None) -> smplify.FitParams:
+    """Seed an SMPL-X fit (one frame) from a finished SMPL fit's result
+    (numpy arrays of one frame): betas, global orientation, the first 21
+    body joints, translation and scale carry over; hands and face start
+    at zero."""
+    pose = np.asarray(smpl_result["pose"], np.float32).reshape(-1)
+    betas = np.zeros(smplx_model.num_betas, np.float32)
+    src = np.asarray(smpl_result["betas"], np.float32).reshape(-1)
+    n = min(len(betas), len(src))
+    betas[:n] = src[:n]
+    init = smplify.FitParams.init(
+        smplx_model, init_betas=betas,
+        init_global_orient=np.asarray(smpl_result["global_orient"],
+                                      np.float32).reshape(-1),
+        init_body_pose=pose[: 3 * smplx_model.num_body_joints],
+        device=device)
+    scale = np.asarray(smpl_result["scale"], np.float32).reshape(-1)
+    transl = np.asarray(smpl_result["global_transl"], np.float32).reshape(-1)
+    # the stored global_transl is transl * scale: undo it, keeping the
+    # sign of a (degenerate) negative fitted scale
+    safe = np.where(np.abs(scale) < 1e-8, 1e-8, scale).astype(np.float32)
+    dev = init.global_transl.device
+    dt = init.global_transl.dtype
+    return dataclasses.replace(
+        init,
+        global_transl=torch.as_tensor(transl / safe, dtype=dt,
+                                      device=dev)[None],
+        body_scale=torch.as_tensor(scale, dtype=dt, device=dev)[None],
+    )
+
+
+def fit_frames_batched_sharded(*args, **kwargs):
+    """Frame data parallelism over several devices is not ported yet
+    (ROADMAP §1 item 13): raises."""
+    raise NotImplementedError(
+        "multi-device frame batches are not ported yet (ROADMAP §1 item "
+        "13); fit on one device with fit_frames_batched")
+
+
+def fit_sequence_batched(model, config: smplify.FitConfig,
+                         obs_list: Sequence[smplify.Observations],
+                         init_list: Sequence[smplify.FitParams],
+                         pose_prior_fn, tcfg=None):
+    """The temporally coupled fit (:func:`sequence.fit_sequence`) of a
+    list of per-frame observations on one device (the JAX function's
+    device ``mesh`` is not ported: ROADMAP §1 item 13).  Returns
+    ``(results, losses [num_iters])``: the loss curve is the sequence's."""
+    from bodyfitting_torch.fitting import sequence as seq
+
+    obs = smplify.concat_frames(list(obs_list))
+    init = smplify.concat_frames(list(init_list))
+    _, results, losses = seq.fit_sequence(
+        model, config, obs, init, pose_prior_fn,
+        tcfg if tcfg is not None else seq.TemporalConfig())
+    return results, losses
+
+
+def check_smpl_fitting(image: np.ndarray, verts, c2w, K) -> np.ndarray:
+    """The reprojection overlay: ``image`` with a green plus (OpenCV's
+    filled circle of radius 1) at each projected vertex inside it."""
+    w2c = np.linalg.inv(np.asarray(c2w))
+    cam = np.asarray(verts) @ w2c[:3, :3].T + w2c[:3, 3]
+    proj = cam @ np.asarray(K).T
+    with np.errstate(invalid="ignore", divide="ignore"):
+        uv = proj[:, :2] / np.maximum(proj[:, 2:3], 1e-9)
+    out = image.copy()
+    h, w = out.shape[:2]
+    ok = np.isfinite(uv).all(1) & (np.abs(uv) < 2 ** 31).all(1)
+    xy = uv[ok].astype(np.int64)                  # truncation, as int()
+    xy = xy[(xy[:, 0] >= 0) & (xy[:, 0] < w) & (xy[:, 1] >= 0)
+            & (xy[:, 1] < h)]
+    green = np.zeros(out.shape[2:], out.dtype)
+    green[..., 1] = 255
+    for dx, dy in ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)):
+        x, y = xy[:, 0] + dx, xy[:, 1] + dy
+        keep = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+        out[y[keep], x[keep]] = green
+    return out
+
+
+def save_frame_outputs(output_folder: str, smpl_type: str, model,
+                       result: dict, images=None, c2ws=None, Ks=None,
+                       use_frames=None, render_skip: int = 12,
+                       debug: bool = False) -> None:
+    """A frame's ``{smpl_type}_parameter.npy`` and ``{smpl_type}.obj``
+    (``+d.obj`` with a displacement), and with ``debug`` the reprojection
+    overlays ``smpl_fitting/%02d.png`` named after ``use_frames``."""
+    from bodyfitting_torch.io.images import imwrite
+    from bodyfitting_torch.io.params import save_fit_outputs
+
+    save_fit_outputs(output_folder, smpl_type, result,
+                     model.faces.cpu().numpy(),
+                     displacement=result.get("displacement"))
+    if debug and images is not None:
+        fit_dir = os.path.join(output_folder, "smpl_fitting")
+        os.makedirs(fit_dir, exist_ok=True)
+        frames = use_frames or list(range(len(images)))
+        if len(frames) != len(images):
+            raise ValueError(f"use_frames ({len(frames)}) must align 1:1 "
+                             f"with images ({len(images)})")
+        verts = np.asarray(result["vertices"])
+        for idx in range(0, len(images), render_skip):
+            imwrite(os.path.join(fit_dir, "%02d.png" % frames[idx]),
+                    check_smpl_fitting(images[idx], verts, c2ws[idx],
+                                       Ks[idx]))
 
 
 def fit_scan(model, config: smplify.FitConfig, obs: smplify.Observations,

@@ -112,25 +112,27 @@ class FitParams:
         init_global_orient: Optional[torch.Tensor] = None,
         init_body_pose: Optional[torch.Tensor] = None,
         batch: int = 1,
+        device=None,
     ) -> "FitParams":
         """Zero pose, unit scale, no translation; given init arrays are
-        ``[B, n]`` (or ``[n]``, broadcast over the ``batch`` frames)."""
-        body = bm.BodyParams.zeros(model, batch)
+        ``[B, n]`` (or ``[n]``, broadcast over the ``batch`` frames).  On
+        ``device``, by default the model's."""
+        device = device or model.device
+        body = bm.BodyParams.zeros(model, batch, device)
         for name, val in (("betas", init_betas),
                           ("global_orient", init_global_orient),
                           ("body_pose", init_body_pose)):
             if val is not None:
-                val = torch.as_tensor(val, dtype=model.dtype,
-                                      device=model.device)
+                val = torch.as_tensor(val, dtype=model.dtype, device=device)
                 body = dataclasses.replace(
                     body, **{name: val.expand(batch, -1).clone()}
                 )
         return FitParams(
             body=body,
             global_transl=torch.zeros((batch, 3), dtype=model.dtype,
-                                      device=model.device),
+                                      device=device),
             body_scale=torch.ones((batch, 1), dtype=model.dtype,
-                                  device=model.device),
+                                  device=device),
         )
 
     def tensors(self) -> list:
@@ -193,6 +195,25 @@ def concat_frames(items):
         else:
             fields[f.name] = torch.cat(vals, dim=0)
     return type(first)(**fields)
+
+
+def to_device(item, device):
+    """A dataclass of tensors (:class:`Observations`, :class:`FitParams`,
+    nested ones included) with every tensor on ``device``.  Host tensors
+    bound for a CUDA device are pinned first, so their copies run
+    asynchronously on the current stream."""
+    device = torch.device(device)
+    fields = {}
+    for f in dataclasses.fields(item):
+        v = getattr(item, f.name)
+        if dataclasses.is_dataclass(v):
+            v = to_device(v, device)
+        elif torch.is_tensor(v) and v.device != device:
+            if device.type == "cuda" and v.device.type == "cpu":
+                v = v.pin_memory()
+            v = v.to(device, non_blocking=True)
+        fields[f.name] = v
+    return type(item)(**fields)
 
 
 def _body_pose69(model: bm.BodyModel, body_pose: torch.Tensor) -> torch.Tensor:

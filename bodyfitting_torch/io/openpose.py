@@ -1,13 +1,19 @@
-"""OpenPose keypoint packing (host-side numpy).
+"""OpenPose JSON ingestion and keypoint packing (host-side numpy).
 
-Counterpart of ``bodyfitting_tpu/io/openpose.py:pack_keypoints``: a
-sequence of per-view OpenPose dicts becomes the padded ``[Vw, K, 3]``
-array plus view mask that the keypoint loss consumes, with the face block
-permuted into model order up front.
+Counterpart of ``bodyfitting_tpu/io/openpose.py``: per-view JSON files of
+the OpenPose binary (``people[*].pose_keypoints_2d``,
+``hand_{left,right}_keypoints_2d``, ``face_keypoints_2d``) are parsed,
+keeping the person with the highest summed confidence; a sequence of
+per-view dicts becomes the padded ``[Vw, K, 3]`` array plus view mask
+that the keypoint loss consumes, with the face block permuted into model
+order up front.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -18,6 +24,49 @@ from bodyfitting_torch.constants import (
     NUM_FACE_KP,
     NUM_HAND_KP,
 )
+
+
+def load_openpose(json_path: str, only_one: bool = True):
+    """One OpenPose JSON as ``{pose, hand_left, hand_right, face}`` arrays
+    ``[n, 3]`` (None when nobody was detected).  With ``only_one`` the
+    person with the highest summed confidence wins; otherwise a list of
+    every person's dict."""
+    with open(json_path) as f:
+        doc = json.load(f)
+    parsed = []
+    for person in doc.get("people", []):
+        blocks = {}
+        for key, flat in person.items():
+            if "keypoints" not in key:
+                continue
+            arr = np.reshape(np.asarray(flat, dtype=np.float32), -1)
+            if arr.size == 0:
+                continue
+            dims = re.findall(r"([2-9]d)", key)
+            dim = int(dims[-1][0]) if dims else 2
+            if arr.size % (dim + 1) == 0:
+                arr = arr.reshape(-1, dim + 1)
+                if np.abs(arr[:, -1]).max() <= 0:
+                    continue                  # all-zero confidence block
+            elif arr.size % dim == 0:
+                arr = arr.reshape(-1, dim)
+            else:
+                arr = arr[: (arr.size // dim) * dim].reshape(-1, dim)
+            blocks[key.replace("_keypoints", "").replace(f"_{dim}d", "")] = arr
+        if blocks:
+            parsed.append(blocks)
+    if not parsed:
+        return None
+    if not only_one:
+        return parsed
+    scores = [sum(float(b[:, -1].sum()) for b in p.values()) for p in parsed]
+    return parsed[int(np.argmax(scores))]
+
+
+def load_openpose_dir(openpose_dir: str):
+    """Every per-view JSON of a frame, in sorted file-name order."""
+    names = sorted(n for n in os.listdir(openpose_dir) if n.endswith(".json"))
+    return [load_openpose(os.path.join(openpose_dir, n)) for n in names]
 
 
 def pack_keypoints(

@@ -14,7 +14,8 @@ arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import pickle
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -149,7 +150,9 @@ class BodyParams:
     right_hand_pose: torch.Tensor  # [B, C]
 
     @staticmethod
-    def zeros(model: BodyModel, batch: int = 1) -> "BodyParams":
+    def zeros(model: BodyModel, batch: int = 1,
+              device=None) -> "BodyParams":
+        """Zero parameters on ``device`` (default: the model's)."""
         c = model.num_hand_pca if model.hand_use_pca else 45
         sizes = dict(
             betas=model.num_betas, global_orient=3,
@@ -158,7 +161,8 @@ class BodyParams:
             reye_pose=3, left_hand_pose=c, right_hand_pose=c,
         )
         return BodyParams(**{
-            k: torch.zeros((batch, n), dtype=model.dtype, device=model.device)
+            k: torch.zeros((batch, n), dtype=model.dtype,
+                           device=device or model.device)
             for k, n in sizes.items()
         })
 
@@ -301,6 +305,20 @@ def _face_landmarks(model: BodyModel, vertices: torch.Tensor,
     return torch.einsum("blvc,blv->blc", tri_verts, lmk_bary)
 
 
+# Fused-skinning switch, with the JAX package's meaning
+# (bodyfitting_tpu/models/body_model.py:464): "on" routes lbs through the
+# CUDA kernel of ops/kernels/skinning.py (its plain version on the CPU);
+# "auto" and "off" keep the matmul + einsum.  Weights that are not f32
+# take the matmul path whatever the switch says.
+FUSED_SKINNING = "auto"
+
+
+def _use_fused_skinning(model: BodyModel) -> bool:
+    if FUSED_SKINNING in ("off", "auto"):
+        return False
+    return model.lbs_weights.dtype == torch.float32
+
+
 def lbs(model: BodyModel, params: BodyParams):
     """Linear blend skinning.  Returns ``(vertices [B,V,3],
     skeleton_joints [B,J,3], full_pose [B,J*3])``."""
@@ -342,11 +360,17 @@ def lbs(model: BodyModel, params: BodyParams):
     posed_joints, rel_tf = rigid_transform_chain(
         rot_mats, rest_joints, model.parents
     )
-    # Skinning as one matmul W @ A12 plus a 3x4 apply, as the JAX package
-    # does when its fused-skinning kernel is off (its default).
+    # Skinning: the fused kernel when switched on, else one matmul
+    # W @ A12 plus a 3x4 apply, as the JAX package does with its kernel
+    # off (its default).
     A12 = rel_tf.reshape(B, model.num_joints, 12)
-    T = torch.matmul(model.lbs_weights, A12).reshape(B, -1, 3, 4)
-    verts = torch.einsum("bvij,bvj->bvi", T[..., :3], v_posed) + T[..., 3]
+    if _use_fused_skinning(model):
+        from bodyfitting_torch.ops.kernels.skinning import fused_skinning
+
+        verts = fused_skinning(model.lbs_weights, A12, v_posed)
+    else:
+        T = torch.matmul(model.lbs_weights, A12).reshape(B, -1, 3, 4)
+        verts = torch.einsum("bvij,bvj->bvi", T[..., :3], v_posed) + T[..., 3]
     return verts, posed_joints, full_pose_aa
 
 
@@ -700,6 +724,179 @@ def synthetic_model(
         num_expressions=E,
         num_hand_pca=num_hand_pca,
         flat_hand_mean=False,
+        use_face_contour=use_face_contour and is_x,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Asset loading
+# ---------------------------------------------------------------------------
+
+# The 21 auxiliary joints picked from the mesh (the smplx package's public
+# vertex_ids tables), in its VertexJointSelector order: 5 face, 6 feet,
+# 10 fingertips.
+_VERTEX_IDS = {
+    "smpl": dict(
+        nose=332, reye=6260, leye=2800, rear=4071, lear=583,
+        LBigToe=3216, LSmallToe=3226, LHeel=3387,
+        RBigToe=6617, RSmallToe=6624, RHeel=6787,
+        lthumb=2746, lindex=2319, lmiddle=2445, lring=2556, lpinky=2673,
+        rthumb=6191, rindex=5782, rmiddle=5905, rring=6016, rpinky=6133,
+    ),
+    "smplx": dict(
+        nose=9120, reye=9929, leye=9448, rear=616, lear=6,
+        LBigToe=5770, LSmallToe=5780, LHeel=8846,
+        RBigToe=8463, RSmallToe=8474, RHeel=8635,
+        lthumb=5361, lindex=4933, lmiddle=5058, lring=5169, lpinky=5286,
+        rthumb=8079, rindex=7669, rmiddle=7794, rring=7905, rpinky=8022,
+    ),
+}
+_VERTEX_IDS["smplh"] = _VERTEX_IDS["smpl"]
+_SELECTOR_ORDER = (
+    "nose", "reye", "leye", "rear", "lear",
+    "LBigToe", "LSmallToe", "LHeel", "RBigToe", "RSmallToe", "RHeel",
+    "lthumb", "lindex", "lmiddle", "lring", "lpinky",
+    "rthumb", "rindex", "rmiddle", "rring", "rpinky",
+)
+
+
+def selector_vertex_ids(model_type: str) -> np.ndarray:
+    """The 21 vertex ids appended after the skeleton joints, in order."""
+    table = _VERTEX_IDS[model_type]
+    return np.array([table[k] for k in _SELECTOR_ORDER], dtype=np.int64)
+
+
+class _ChumpyFreeUnpickler(pickle.Unpickler):
+    """Unpickles SMPL ``.pkl`` assets without the ``chumpy`` package: a
+    chumpy array becomes a plain object whose state keeps the numpy data
+    (under ``x``)."""
+
+    class _Ch:
+        def __setstate__(self, state):
+            self.__dict__.update(state)
+
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyFreeUnpickler._Ch
+        if module == "copy_reg" and name == "_reconstructor":
+            return lambda cls, base, state: (
+                base(state) if base is not object else cls.__new__(cls))
+        return super().find_class(module, name)
+
+
+def _as_np(x, dtype=np.float64) -> np.ndarray:
+    if hasattr(x, "toarray"):                      # scipy sparse
+        x = x.toarray()
+    if "x" in getattr(x, "__dict__", {}):          # chumpy: its data
+        x = x.__dict__["x"]
+    return np.asarray(x, dtype=dtype)
+
+
+def _load_asset(path: str):
+    if path.endswith(".npz"):
+        return dict(np.load(path, allow_pickle=True))
+    with open(path, "rb") as f:
+        return _ChumpyFreeUnpickler(f, encoding="latin1").load()
+
+
+def load_model(
+    path: str,
+    model_type: Optional[str] = None,
+    num_betas: int = 10,
+    num_expressions: int = 10,
+    num_hand_pca: int = 6,
+    hand_use_pca: bool = True,
+    flat_hand_mean: bool = False,
+    use_face_contour: bool = True,
+    extra_joint_regressor_path: Optional[str] = None,
+    kid_template_path: Optional[str] = None,
+    dtype=torch.float32,
+    device=None,
+) -> BodyModel:
+    """A SMPL (``.pkl``) or SMPL-X (``.npz``) asset as a :class:`BodyModel`
+    on ``device`` (default ``cuda``), as the JAX ``load_model`` reads it:
+    the model type from the joint count when not given; SMPL-X shape
+    directions in the full layout (400: shape ``[0:300]``, expression
+    ``[300:310]``) or the legacy one (20: shape ``[0:10]``, expression
+    ``[10:20]``); a kid template as one more shape coefficient."""
+    device = default_device(device)
+    data: Any = _load_asset(path)
+    J = _as_np(data["J_regressor"]).shape[0]
+    if model_type is None:
+        model_type = {24: "smpl", 52: "smplh", 55: "smplx"}.get(J, "smpl")
+    v_template = _as_np(data["v_template"])
+    V = v_template.shape[0]
+    shapedirs_full = _as_np(data["shapedirs"])             # [V, 3, S_total]
+    if model_type == "smplx" and shapedirs_full.shape[-1] > 150:
+        shape_part = shapedirs_full[..., :num_betas]
+        expr_part = shapedirs_full[..., 300:300 + num_expressions]
+    elif model_type == "smplx":
+        shape_part = shapedirs_full[..., :min(num_betas, 10)]
+        expr_part = shapedirs_full[..., 10:10 + min(num_expressions, 10)]
+    else:
+        shape_part = shapedirs_full[..., :num_betas]
+        expr_part = None
+    posedirs = _as_np(data["posedirs"]).reshape(V * 3, -1).T
+    parents = np.asarray(_as_np(data["kintree_table"], np.int64))
+    if parents.ndim == 2:              # kintree_table [2, J]: row 0 = parents
+        parents = parents[0]
+    parents = parents.astype(np.int64)
+    parents[0] = -1                    # stored as 2^32 - 1 in some assets
+    parents = tuple(int(p) for p in parents)
+
+    kid_dir = None
+    if kid_template_path is not None:
+        kid = _load_asset(kid_template_path)
+        kid_v = _as_np(kid["v_template"] if isinstance(kid, dict) else kid)
+        kid_dir = ((kid_v - kid_v.mean(0, keepdims=True))
+                   - v_template).reshape(-1)
+    extra_reg = (None if extra_joint_regressor_path is None
+                 else np.load(extra_joint_regressor_path).astype(np.float64))
+    is_x = model_type == "smplx"
+
+    def arr(x):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x), dtype=dtype, device=device)
+
+    def idx(key):
+        return (torch.as_tensor(_as_np(data[key], np.int64), device=device)
+                if key in data else None)
+
+    def maybe(key):
+        return arr(_as_np(data[key])) if key in data else None
+
+    return BodyModel(
+        v_template=arr(v_template),
+        shapedirs=arr(shape_part.reshape(V * 3, -1).T),
+        posedirs=arr(posedirs),
+        J_regressor=arr(_as_np(data["J_regressor"])),
+        lbs_weights=arr(_as_np(data["weights"])),
+        faces=torch.as_tensor(_as_np(data["f"], np.int64), device=device),
+        expr_dirs=(None if expr_part is None
+                   else arr(expr_part.reshape(V * 3, -1).T)),
+        hand_components_l=maybe("hands_componentsl"),
+        hand_components_r=maybe("hands_componentsr"),
+        hand_mean_l=maybe("hands_meanl"),
+        hand_mean_r=maybe("hands_meanr"),
+        lmk_faces_idx=idx("lmk_faces_idx"),
+        lmk_bary_coords=maybe("lmk_bary_coords"),
+        dyn_lmk_faces_idx=idx("dynamic_lmk_faces_idx"),
+        dyn_lmk_bary_coords=maybe("dynamic_lmk_bary_coords"),
+        extra_joint_regressor=arr(extra_reg),
+        selector_ids=torch.as_tensor(selector_vertex_ids(model_type),
+                                     device=device),
+        joint_mapper=(torch.as_tensor(
+            smpl_to_openpose("smplx", use_face_contour=use_face_contour),
+            device=device) if is_x else None),
+        kid_shape_dir=arr(kid_dir),
+        model_type=model_type,
+        parents=parents,
+        neck_chain=_neck_chain(parents) if is_x else (),
+        num_betas=num_betas + (1 if kid_dir is not None else 0),
+        num_expressions=num_expressions if is_x else 0,
+        num_hand_pca=num_hand_pca,
+        hand_use_pca=hand_use_pca,
+        flat_hand_mean=flat_hand_mean,
         use_face_contour=use_face_contour and is_x,
     )
 

@@ -28,9 +28,17 @@ from bodyfitting_torch.ops.kernels.rows_scatter import (
     rows_scatter_add,
     rows_scatter_add_plain,
 )
+from bodyfitting_torch.ops.kernels.skinning import (
+    fused_skinning,
+    skin_backward,
+    skin_backward_plain,
+    skin_forward,
+    skin_forward_plain,
+)
 
 KERNELS = (bilinear_cov_grads, contour_match_full, rows_scatter_add,
-           nearest_d2_idx, rasterize_zbuf, rasterize_attrs)
+           nearest_d2_idx, rasterize_zbuf, rasterize_attrs, skin_forward,
+           skin_backward)
 
 
 def reset_launch_counts() -> None:
@@ -49,5 +57,7 @@ __all__ = [
     "nearest_d2_idx", "nearest_d2_idx_plain",
     "rasterize_zbuf", "rasterize_zbuf_plain",
     "rasterize_attrs", "rasterize_attrs_plain",
+    "skin_forward", "skin_forward_plain", "skin_backward",
+    "skin_backward_plain", "fused_skinning",
     "KERNELS", "reset_launch_counts", "launch_counts",
 ]

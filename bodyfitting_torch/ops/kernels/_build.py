@@ -1,13 +1,16 @@
-"""Build the CUDA sources in ``ops/csrc`` and bind them with ctypes.
+"""Build the sources in ``ops/csrc`` and bind them with ctypes.
 
 Each ``.cu`` file is a plain-C shared library (no PyTorch headers, so
 ``nvcc`` takes seconds), built for ``sm_90a`` at first use into
-``ops/_build/`` (git-ignored).  The library name carries a hash of its
-source and flags, so an edited source is rebuilt, never loaded stale.
-All sources are compiled in parallel, one ``nvcc`` process each.
+``ops/_build/`` (git-ignored).  Each ``.cpp`` file is host code (the PNG
+unfilter), built the same way with the system C++ compiler, the one
+``nvcc`` uses for host code; it needs no CUDA toolkit.  The library name
+carries a hash of its source and flags, so an edited source is rebuilt,
+never loaded stale.  All sources are compiled in parallel, one compiler
+process each.
 
 Nothing here runs at import time: CPU-only machines import the kernel
-modules and never reach this file's functions.
+modules and never reach the CUDA builds.
 """
 
 from __future__ import annotations
@@ -30,12 +33,24 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
-SOURCES = ("bilinear", "contour_match", "nearest", "raster", "rows_scatter")
+SOURCES = ("bilinear", "contour_match", "nearest", "raster", "rows_scatter",
+           "skinning")
+HOST_SOURCES = ("png_unfilter",)
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
-build_log: dict = {}      # name -> nvcc output (ptxas register/smem report)
+build_log: dict = {}      # name -> compiler output (ptxas register/smem report)
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found: the PNG unfilter needs one "
+                       "(set CXX or put c++ on PATH)")
 
 
 def _nvcc() -> str:
@@ -51,49 +66,64 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> tuple[str, str]:
-    src = os.path.join(CSRC, f"{name}.cu")
+    host = name in HOST_SOURCES
+    src = os.path.join(CSRC, f"{name}.cpp" if host else f"{name}.cu")
+    flags = CXX_FLAGS if host else NVCC_FLAGS
     with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
+def _compile(names) -> float:
+    """Compile each of ``names`` that has no current library, in parallel;
+    returns the wall seconds spent.  Raises with the compiler's output if
+    a build fails."""
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        src, out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        cmd = ([_cxx(), *CXX_FLAGS] if name in HOST_SOURCES
+               else [_nvcc(), *NVCC_FLAGS])
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        procs[name] = (out, tmp, subprocess.Popen(
+            [*cmd, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (rc {proc.returncode})\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
 def build_all() -> float:
-    """Compile every source that has no current library; returns the
-    wall seconds spent.  Raises with nvcc's output if a build fails."""
+    """Compile every source (CUDA and host) that has no current library;
+    returns the wall seconds spent."""
     with _LOCK:
-        t0 = time.perf_counter()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        for name in SOURCES:
-            src, out = _lib_path(name)
-            if os.path.exists(out):
-                continue
-            tmp = f"{out}.{os.getpid()}.tmp"
-            procs[name] = (out, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            ))
-        failed = []
-        for name, (out, tmp, proc) in procs.items():
-            log, _ = proc.communicate()
-            build_log[name] = log
-            if proc.returncode != 0:
-                failed.append(f"--- {name}.cu (rc {proc.returncode})\n{log}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        return time.perf_counter() - t0
+        return _compile(SOURCES + HOST_SOURCES)
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), building it
+    if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         _, path = _lib_path(name)
         if not os.path.exists(path):
-            build_all()
+            if name in HOST_SOURCES:
+                with _LOCK:
+                    _compile((name,))
+            else:
+                build_all()
         lib = ctypes.CDLL(path)
         _LIBS[name] = lib
     return lib

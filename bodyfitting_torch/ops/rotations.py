@@ -1,7 +1,8 @@
-"""Axis-angle to rotation matrix, batched over leading dimensions.
+"""Rotation conversions, batched over leading dimensions.
 
-Counterpart of ``bodyfitting_tpu/ops/rotations.py``: the same quaternion
-route, so tiny-angle values and gradients at zero match.
+Counterpart of ``bodyfitting_tpu/ops/rotations.py``: axis-angle to matrix
+by the same quaternion route, so tiny-angle values and gradients at zero
+match; the HMR head's 6D decoding; matrix to axis-angle on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +23,19 @@ def rodrigues(aa: torch.Tensor) -> torch.Tensor:
     axis = aa / angle
     quat = torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
     return quat_to_rotmat(quat)
+
+
+def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
+    """The continuous 6D rotation representation ``[..., 6]`` (the first
+    two columns, read as ``reshape(3, 2)``) to ``[..., 3, 3]`` by
+    Gram-Schmidt, as the HMR head decodes its pose."""
+    x = x.reshape(x.shape[:-1] + (3, 2))
+    a1, a2 = x[..., 0], x[..., 1]
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True).clamp(min=_EPS)
+    b2 = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True).clamp(min=_EPS)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
 
 
 def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:

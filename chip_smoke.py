@@ -64,6 +64,25 @@ Phases; the first failure ends the run with a non-zero exit code:
    kernels timed beside their bound (bytes, or 25 operations a pixel-face
    pair whose face box holds the pixel centre).
 
+9. the GeneBody app, ``python -m bodyfitting_torch.apps.genebody`` run
+   through ``main(argv)`` with ``FUSED_SKINNING = "on"``: a synthetic
+   subject written with the port's own writers to a temporary directory
+   (48 ring cameras in ``annots.npy``, 2448x2048 mask PNGs for 16 frames x
+   48 views, the listing and HMR keyframe images, OpenPose JSONs of
+   seeded SMPL-X bodies in each view's crop, which stand in for the
+   openpose.bin run); (a) the default keypoint-only SMPL-X run with a
+   seeded HMR checkpoint and ``--timing``, 16 frames in two batches of 8
+   through the pipelined loop; (b) ``--use_mask`` and (c) ``--temporal``
+   on 8 frames; 600 iterations each at ``--load_size 512``, the synthetic
+   SMPL-X at 10,475 vertices.  The counters are zeroed around each run.
+   Checks: every frame's OBJ and parameters (the JAX app's keys, finite),
+   the fitted joints' reprojection onto the ground truth's keypoints, the
+   masked stage's descent, the skinning launch counts (one forward and
+   one backward a step, one forward a batch for the output), the kernels
+   bitwise against their plain versions at every shape the app gave them,
+   and the mask loss and gradient with the kernels against the matmul
+   path; then the kernels timed there and at 128 frames of full width.
+
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -126,8 +145,10 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def ring_cameras(n, imsize, focal, dist):
-    """``n`` cameras on a horizontal ring, all looking at the origin."""
+def ring_cameras(n, imsize, focal, dist, height=None):
+    """``n`` cameras on a horizontal ring, all looking at the origin, for
+    images ``imsize`` wide and ``height`` (default ``imsize``) high."""
+    height = imsize if height is None else height
     c2ws, Ks = [], []
     for th in np.linspace(0, 2 * np.pi, n, endpoint=False):
         eye = np.array([dist * np.sin(th), 0.0, dist * np.cos(th)])
@@ -138,7 +159,7 @@ def ring_cameras(n, imsize, focal, dist):
         c2w[:3, :3] = np.stack([x, np.cross(z, x), z], 1)
         c2w[:3, 3] = eye
         c2ws.append(c2w.astype(np.float32))
-        Ks.append(np.array([[focal, 0, imsize / 2], [0, focal, imsize / 2],
+        Ks.append(np.array([[focal, 0, imsize / 2], [0, focal, height / 2],
                             [0, 0, 1]], np.float32))
     return c2ws, Ks
 
@@ -149,13 +170,15 @@ def project(pts, c2w, K):
     return uv[:, :2] / uv[:, 2:3]
 
 
-def splat_mask(pts_uv, imsize, dilate):
-    """A filled silhouette from projected vertices (no OpenCV)."""
+def splat_mask(pts_uv, imsize, dilate, height=None):
+    """A filled silhouette from projected vertices (no OpenCV), ``imsize``
+    wide and ``height`` (default ``imsize``) high."""
     from scipy import ndimage
 
+    height = imsize if height is None else height
     uv = np.round(pts_uv).astype(np.int64)
-    ok = (uv >= 0).all(1) & (uv < imsize).all(1)
-    m = np.zeros((imsize, imsize), bool)
+    ok = (uv >= 0).all(1) & (uv < [imsize, height]).all(1)
+    m = np.zeros((height, imsize), bool)
     m[uv[ok, 1], uv[ok, 0]] = True
     m = ndimage.binary_fill_holes(ndimage.binary_dilation(m, iterations=dilate))
     return m.astype(np.float32)
@@ -1475,6 +1498,566 @@ def check_lbam_and_small_fit(devices=("cuda", "cpu")):
     assert np.isfinite(la).all() and rel <= 1e-3 and tmean <= 1e-4
 
 
+# ---------------------------------------------------------------------------
+# The GeneBody app: python -m bodyfitting_torch.apps.genebody end to end
+# ---------------------------------------------------------------------------
+
+# The app's shape: the default keypoint-only SMPL-X run on 16 frames in two
+# batches of 8 through the pipelined loop, with HMR on the keyframe; the
+# --use_mask and --temporal runs on 8 frames; 48 views at the full capture
+# resolution (2448 x 2048), crops at --load_size 512, 600 iterations, the
+# synthetic SMPL-X (10,475 vertices) with FUSED_SKINNING = "on".
+APP_PATH = dict(num_verts=10475, capture=(2448, 2048), focal=3600.0,
+                dist=2.0, load_size=512, frames=16, batch=8, mask_frames=8,
+                num_iters=600, temporal_iters=600, splat=4, hmr=True,
+                bench_batch=128,
+                # the largest mean reprojection error of a frame (px of the
+                # 512^2 crops): twice the CPU rehearsal's worst frame
+                # (9.9 / 27.9 / 10.2 px; the mask fit ends worse, as in
+                # phase 3: Adam's transient at the gate)
+                max_px=dict(keypoints=20.0, use_mask=56.0, temporal=20.0))
+SUBJECT = "smoke"
+SKIN_KERNELS = ("skin_forward", "skin_backward")
+TPU_KERNELS.update(
+    skin_forward="bodyfitting_tpu/ops/pallas_kernels.py:982",
+    skin_backward="bodyfitting_tpu/ops/pallas_kernels.py:996")
+SOURCES.update(skin_forward="bodyfitting_torch/ops/csrc/skinning.cu",
+               skin_backward="bodyfitting_torch/ops/csrc/skinning.cu")
+
+
+def _aa_to_rotmat_np(aa):
+    import torch
+
+    from bodyfitting_torch.ops.rotations import rodrigues
+
+    return rodrigues(torch.tensor(np.asarray(aa, np.float64))).numpy()
+
+
+def write_genebody_subject(root, model, size, seed=0):
+    """A synthetic GeneBody subject under ``root/genebody/smoke``, written
+    with the port's own writers: ``annots.npy`` with 48 ring cameras,
+    ``mask/%02d/%04d.png`` at the capture resolution for every view and
+    frame, ``image/00`` (the frame listing) and ``image/25`` (the HMR
+    keyframe), and the OpenPose keypoints (body, hands, face) of seeded
+    SMPL-X bodies projected into each view's 512^2 crop, plus 1 px of
+    noise: these stand in for the openpose.bin run.  The bodies face the
+    keyframe camera as HMR's mean pose does, turned by a seeded 0.15 rad.
+    Returns the keypoints and what the checks need."""
+    import torch
+
+    from bodyfitting_torch.io.cameras import save_annots
+    from bodyfitting_torch.io.images import adjust_K_for_crop, mask_square_bbox
+    from bodyfitting_torch.io.png import write_png
+    from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.ops.rotations import rotmat_to_aa_np
+    from concurrent.futures import ThreadPoolExecutor
+
+    W, H = size["capture"]
+    F, n_views, key = size["frames"], 48, 25
+    sub = os.path.join(root, "genebody", SUBJECT)
+    c2ws, Ks = ring_cameras(n_views, W, size["focal"], size["dist"], height=H)
+    os.makedirs(sub)
+    save_annots(os.path.join(sub, "annots.npy"), np.stack(Ks), np.stack(c2ws))
+    rng = np.random.default_rng(seed)
+    orient = np.stack([rotmat_to_aa_np(
+        c2ws[key][:3, :3] @ _aa_to_rotmat_np(rng.normal(scale=0.15, size=3)))
+        for _ in range(F)])
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=model.device)
+
+    gt = dataclasses.replace(
+        bm.BodyParams.zeros(model, F),
+        body_pose=t(rng.normal(scale=0.15, size=(F, 3 * model.num_body_joints))),
+        betas=t(rng.normal(scale=0.5, size=(F, model.num_betas))),
+        global_orient=t(orient))
+    with torch.no_grad():
+        out = bm.forward(model, gt)
+    transl = rng.normal(scale=0.03, size=(F, 1, 3))
+    scale = 0.3 * 1.15
+    joints = (out.joints.cpu().numpy() + transl) * scale
+    verts = (out.vertices.cpu().numpy()[:, ::4] + transl) * scale
+    s = size["splat"]
+
+    def mask_of(f, v):
+        """The view's silhouette, splatted at 1/s of the capture size and
+        blown up, so 768 full-resolution masks take seconds."""
+        m = splat_mask(project(verts[f], c2ws[v], Ks[v]) / s, W // s, 2,
+                       height=H // s)
+        return np.repeat(np.repeat((m > 0).astype(np.uint8) * 255, s, 0), s, 1)
+
+    for v in range(n_views):
+        os.makedirs(os.path.join(sub, "mask", "%02d" % v))
+    for v in (0, key):
+        os.makedirs(os.path.join(sub, "image", "%02d" % v))
+
+    def write_view(job):
+        f, v = job
+        m = mask_of(f, v)
+        t0 = time.perf_counter()
+        write_png(os.path.join(sub, "mask", "%02d" % v, "%04d.png" % f), m,
+                  level=1)
+        dt = time.perf_counter() - t0
+        if v in (0, key):
+            img = np.repeat(m[..., None] // 2, 3, 2)       # grey person
+            write_png(os.path.join(sub, "image", "%02d" % v, "%04d.png" % f),
+                      img, level=1)
+        bbox = mask_square_bbox(m)
+        Kc = adjust_K_for_crop(Ks[v], bbox, size["load_size"])
+        return (f, v), Kc, dt
+
+    t0 = time.perf_counter()
+    jobs = [(f, v) for f in range(F) for v in range(n_views)]
+    with ThreadPoolExecutor(8) as ex:
+        done = list(ex.map(write_view, jobs))
+    write_s = time.perf_counter() - t0
+    crop_K = {fv: Kc for fv, Kc, _ in done}
+    png_ms = 1e3 * float(np.mean([dt for _, _, dt in done]))
+    clean, kps = {}, {}
+    for (f, v), Kc in crop_K.items():
+        uv = project(joints[f], c2ws[v], Kc)
+        clean[f, v] = uv
+        kp = np.concatenate([uv + rng.normal(scale=1.0, size=uv.shape),
+                             np.ones((len(uv), 1))], 1)
+        # OpenPose face order: 17 contour points, then 51 inner ones
+        face = np.concatenate([kp[67 + 51:], kp[67:67 + 51]])
+        kps[f, v] = {"pose_keypoints_2d": kp[:25],
+                     "hand_left_keypoints_2d": kp[25:46],
+                     "hand_right_keypoints_2d": kp[46:67],
+                     "face_keypoints_2d": face}
+    t0 = time.perf_counter()
+    from bodyfitting_torch.io.png import read_png
+
+    probe = [os.path.join(sub, "mask", "%02d" % v, "%04d.png" % 0)
+             for v in range(0, n_views, 6)]
+    for p in probe:
+        read_png(p)
+    decode_ms = (time.perf_counter() - t0) / len(probe) * 1e3
+    log(f"app subject: {F} frames x {n_views} views, masks {W}x{H} written "
+        f"in {write_s:.2f} s ({png_ms:.2f} ms per mask encode, 8 threads), "
+        f"PNG decode {decode_ms:.2f} ms per mask (read_png, one thread)")
+    return dict(sub=sub, c2ws=c2ws, crop_K=crop_K, clean=clean, kps=kps,
+                write_s=write_s, encode_ms=png_ms, decode_ms=decode_ms)
+
+
+def write_keypoint_jsons(out_dir, kps, frames):
+    for (f, v), person in kps.items():
+        if f not in frames:
+            continue
+        d = os.path.join(out_dir, SUBJECT, "%06d" % f, "openpose")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "%02d_keypoints.json" % v), "w") as fh:
+            json.dump({"people": [{k: np.asarray(b).reshape(-1).tolist()
+                                   for k, b in person.items()}]}, fh)
+
+
+def subject_of_first_frames(root, subject_dir, n):
+    """A second subject whose frame listing holds the first ``n`` frames;
+    masks, keyframe images and cameras are the first subject's (links)."""
+    dst = os.path.join(root, "genebody8", SUBJECT)
+    os.makedirs(os.path.join(dst, "image", "00"))
+    os.symlink(os.path.join(subject_dir, "annots.npy"),
+               os.path.join(dst, "annots.npy"))
+    os.symlink(os.path.join(subject_dir, "mask"), os.path.join(dst, "mask"))
+    os.symlink(os.path.join(subject_dir, "image", "25"),
+               os.path.join(dst, "image", "25"))
+    for f in range(n):
+        name = "%04d.png" % f
+        os.symlink(os.path.join(subject_dir, "image", "00", name),
+                   os.path.join(dst, "image", "00", name))
+    return os.path.dirname(dst)
+
+
+class SkinRecorder:
+    """Keeps, at each vertex count, the first inputs that the fused
+    skinning gets and the inputs and output cotangent of its last
+    differentiated call (a fit's last, masked step), without touching the
+    counted wrappers: it wraps ``skinning.fused_skinning``, which ``lbs``
+    looks up at each call, and hooks the output's gradient."""
+
+    def __init__(self):
+        self.fwd, self.bwd = {}, {}
+
+    @contextlib.contextmanager
+    def active(self):
+        from bodyfitting_torch.ops.kernels import skinning as S
+
+        orig = S.fused_skinning
+
+        def wrapped(W, A, vp):
+            V = W.shape[0]
+            out = orig(W, A, vp)
+            args = tuple(x.detach() for x in (W, A, vp))
+            self.fwd.setdefault(V, tuple(x.clone() for x in args))
+            if out.requires_grad:
+                def hook(g, V=V, args=args):
+                    self.bwd[V] = args + (g.detach(),)
+                out.register_hook(hook)
+            return out
+
+        S.fused_skinning = wrapped
+        try:
+            yield self
+        finally:
+            S.fused_skinning = orig
+
+
+@contextlib.contextmanager
+def fit_recorder(store):
+    """Keeps the arguments and result of each ``fit_frames_batched`` call
+    of the app."""
+    from bodyfitting_torch.fitting import body_fitting as bf
+
+    orig = bf.fit_frames_batched
+
+    def wrapped(model, config, obs_list, init_list, prior):
+        out = orig(model, config, obs_list, init_list, prior)
+        store.append(dict(model=model, config=config, obs_list=obs_list,
+                          init_list=init_list, prior=prior, params=out[0]))
+        return out
+    bf.fit_frames_batched = wrapped
+    try:
+        yield store
+    finally:
+        bf.fit_frames_batched = orig
+
+
+def run_app(argv, device):
+    """``bodyfitting_torch.apps.genebody.main(argv)`` with the launch counts
+    zeroed just before and read just after; returns (wall s, counts)."""
+    from bodyfitting_torch.apps import genebody as app
+    from bodyfitting_torch.ops import kernels as K
+
+    sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    app.main(argv, device=device)
+    sync(device)
+    return time.perf_counter() - t0, K.launch_counts()
+
+
+def read_app_outputs(out_dir, frames):
+    """Every frame's saved parameters, OBJ, loss trace and the timing."""
+    from bodyfitting_torch.io.params import PARAM_KEYS
+
+    sub = os.path.join(out_dir, SUBJECT)
+    params = {}
+    for f in frames:
+        obj = os.path.join(sub, "smpl", "%04d.obj" % f)
+        assert os.path.getsize(obj) > 0, obj
+        d = np.load(os.path.join(sub, "param", "%04d.npy" % f),
+                    allow_pickle=True).item()
+        assert set(PARAM_KEYS) <= set(d), sorted(d)
+        for k in PARAM_KEYS:
+            assert np.isfinite(d[k]).all(), (f, k)
+        params[f] = d
+    trace = {}
+    for line in open(os.path.join(sub, "loss_trace.jsonl")):
+        rec = json.loads(line)
+        trace[rec["frame"]] = np.asarray(rec["losses"])
+    assert sorted(trace) == sorted(frames), sorted(trace)
+    timing = None
+    tpath = os.path.join(sub, "timing.json")
+    if os.path.exists(tpath):
+        timing = json.load(open(tpath))
+    return params, trace, timing
+
+
+def reprojection_px(subject, params, frames):
+    """Mean and max over frames of the mean distance (pixels of the 512^2
+    crops) between the fitted joints' projections and the noiseless
+    projections of the ground truth's, over the 135 keypoints and 48
+    views."""
+    per = []
+    for f in frames:
+        j = params[f]["joints"][:135]
+        d = [np.linalg.norm(project(j, subject["c2ws"][v],
+                                    subject["crop_K"][f, v])
+                            - subject["clean"][f, v], axis=1).mean()
+             for v in range(48)]
+        per.append(float(np.mean(d)))
+    return float(np.mean(per)), float(np.max(per))
+
+
+def skin_bound(B, V, J, backward):
+    """Bytes and operations of the function itself: W, A and vp (and g)
+    read once, the outputs written once. The forward needs 2 J 12
+    operations a vertex for T and 18 for the 3x4 apply. The backward
+    needs T's 3x3 rotation part (2 J 9) and 15 for dvp, 9 for the
+    products g[r] vp[k], and 2 J 12 for dA; its tile partials are the
+    kernel's own and are not counted."""
+    if not backward:
+        return bound_ms(4 * (V * J + B * J * 12 + 2 * B * V * 3),
+                        B * V * (24 * J + 18))
+    return bound_ms(4 * (V * J + 2 * B * J * 12 + 3 * B * V * 3),
+                    B * V * (42 * J + 24))
+
+
+def time_skinning(W, A, vp, g):
+    """Device ms of the kernels, their plain versions and the "auto" path
+    (``torch.matmul`` + ``einsum``, two calls; its backward through
+    autograd), on the same inputs."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+
+    B, V, _ = vp.shape
+    reps = 20 if B * V < 2e5 else 10
+    ms_f = cuda_ms(lambda: K.skin_forward(W, A, vp), reps=reps)
+    ms_b = cuda_ms(lambda: K.skin_backward(W, A, vp, g), reps=reps)
+    plain_f = cuda_ms(lambda: K.skin_forward_plain(W, A, vp), reps=2,
+                      warmup=1)
+    plain_b = cuda_ms(lambda: K.skin_backward_plain(W, A, vp, g), reps=2,
+                      warmup=1)
+
+    def auto(a, v):
+        T = torch.matmul(W, a).reshape(B, V, 3, 4)
+        return torch.einsum("bvij,bvj->bvi", T[..., :3], v) + T[..., 3]
+
+    auto_f = cuda_ms(lambda: auto(A, vp), reps=reps)
+    a_, v_ = A.clone().requires_grad_(True), vp.clone().requires_grad_(True)
+    out = auto(a_, v_)
+    auto_b = cuda_ms(lambda: torch.autograd.grad(out, [a_, v_], g,
+                                                 retain_graph=True),
+                     reps=reps)
+    return dict(fwd=(ms_f, plain_f, auto_f), bwd=(ms_b, plain_b, auto_b))
+
+
+def check_skin_kernels(rec, device, bench_batch, seed=0):
+    """The kernels against their plain versions at every shape the app gave
+    them (the backward at full width on a seeded cotangent), then timed
+    there and at ``bench_batch`` frames of the full width."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+
+    gen = np.random.default_rng(seed)
+    cases = {}
+    for V, (W, A, vp) in sorted(rec.fwd.items()):
+        g = rec.bwd[V][3] if V in rec.bwd else torch.as_tensor(
+            gen.normal(size=vp.shape).astype(np.float32), device=vp.device)
+        cases[V] = rec.bwd[V] if V in rec.bwd else (W, A, vp, g)
+    full = max(cases)
+    W, A, vp, _ = cases[full]
+    Bb = bench_batch
+    Ab = torch.as_tensor(gen.normal(size=(Bb,) + A.shape[1:]).astype(
+        np.float32), device=A.device) * 0.1 + A[:1]
+    vpb = vp[:1].expand(Bb, -1, -1).contiguous() + torch.as_tensor(
+        gen.normal(scale=0.01, size=(Bb,) + vp.shape[1:]).astype(np.float32),
+        device=vp.device)
+    gb = torch.as_tensor(gen.normal(size=vpb.shape).astype(np.float32),
+                         device=vp.device)
+    rows, err = [], 0.0
+    for what, (W, A, vp, g) in [(f"V {V}", c) for V, c in cases.items()] + [
+            (f"B {Bb} full width", (W, Ab, vpb, gb))]:
+        out = K.skin_forward(W, A, vp)
+        dA, dvp = K.skin_backward(W, A, vp, g)
+        ref = K.skin_forward_plain(W, A, vp)
+        rdA, rdvp = K.skin_backward_plain(W, A, vp, g)
+        sync(device)
+        same = (torch.equal(out, ref) and torch.equal(dA, rdA)
+                and torch.equal(dvp, rdvp))
+        e = max(float((a - b).abs().max()) for a, b in
+                ((out, ref), (dA, rdA), (dvp, rdvp)))
+        err = max(err, e)
+        B, V, _ = vp.shape
+        J = W.shape[1]
+        log(f"skinning {what} (B {B}, V {V}, J {J}): out, dA and dvp "
+            f"bitwise equal to the plain versions: {same} (tol: exact); max "
+            f"abs err {e:.3e}")
+        assert same, f"the skinning kernels differ from plain ({what})"
+        if torch.device(device).type != "cuda":
+            continue
+        tm = time_skinning(W, A, vp, g)
+        for kind in ("fwd", "bwd"):
+            ms, plain, auto = tm[kind]
+            b, by = skin_bound(B, V, J, kind == "bwd")
+            log(f"skinning {kind} {what}: {ms:.4f} ms, plain {plain:.3f} ms, "
+                f"\"auto\" (matmul + einsum{'' if kind == 'fwd' else ', autograd backward'}) "
+                f"{auto:.4f} ms, bound {b:.5f} ms ({by})")
+            rows.append(dict(what=what, kind=kind, B=B, V=V, ms=ms,
+                             plain_ms=plain, library_ms=auto, bound_ms=b,
+                             bound_by=by))
+    return rows, err
+
+
+def phase_app(size=APP_PATH, device="cuda", smi=""):
+    """The GeneBody app end to end on a synthetic subject: (a) the default
+    keypoint-only SMPL-X run with HMR, 16 frames in two batches through the
+    pipelined loop, with --timing; (b) --use_mask on 8 frames; (c)
+    --temporal on 8 frames; every run with FUSED_SKINNING = "on"."""
+    import tempfile
+
+    import torch
+
+    from bodyfitting_torch.apps import genebody as app
+    from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.models.hmr import seeded_state_dict
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.TemporaryDirectory(prefix="bodyfit_app_")
+    root = tmp.name
+    bm.FUSED_SKINNING = "on"
+    try:
+        argv0 = ["--smpl_type", "smplx", "--subject", SUBJECT,
+                 "--load_size", str(size["load_size"]),
+                 "--synthetic_num_verts", str(size["num_verts"]),
+                 "--batch_frames", str(size["batch"])]
+        model = app.load_body_model(app.config_parser().parse_args(argv0),
+                                    device=device)
+        subject = write_genebody_subject(root, model, size)
+        ckpt = os.path.join(root, "hmr.pth")
+        t0 = time.perf_counter()
+        torch.save(seeded_state_dict(0), ckpt)
+        log(f"app: seeded HMR checkpoint written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        F, n8, iters = size["frames"], size["mask_frames"], size["num_iters"]
+        root8 = subject_of_first_frames(root, subject["sub"], n8)
+        runs, rec, fits = {}, SkinRecorder(), []
+        plan = (
+            ("keypoints", os.path.join(root, "genebody"), range(F),
+             ["--tasks", "openpose", "smplify", "output", "--timing",
+              "--num_iters", str(iters)]
+             + (["--hmr_checkpoint", ckpt] if size["hmr"] else [])),
+            ("use_mask", root8, range(n8),
+             ["--use_mask", "--timing", "--num_iters", str(iters)]),
+            ("temporal", root8, range(n8),
+             ["--temporal", "--timing", "--num_iters",
+              str(size["temporal_iters"])]),
+        )
+        for name, target, frames, extra in plan:
+            out = os.path.join(root, "out_" + name)
+            write_keypoint_jsons(out, subject["kps"], set(frames))
+            argv = argv0 + ["--target_dir", target, "--output_dir", out] + extra
+            with rec.active(), fit_recorder(fits):
+                wall, counts = run_app(argv, device)
+            n_iter = int(extra[extra.index("--num_iters") + 1])
+            batches = -(-len(frames) // size["batch"])
+            expect = dict(skin_forward=batches * (n_iter + 1),
+                          skin_backward=batches * n_iter)
+            params, trace, timing = read_app_outputs(out, list(frames))
+            px = reprojection_px(subject, params, list(frames))
+            runs[name] = dict(wall=wall, counts=counts, expect=expect,
+                              trace=trace, timing=timing, px=px,
+                              fit=fits[-1] if name == "use_mask" else None,
+                              frames=len(frames), iters=n_iter)
+            log(f"app run {name}: {len(frames)} frames, {n_iter} iterations, "
+                f"{wall:.3f} s wall ({len(frames) / wall:.3f} frames/s); "
+                f"launches {counts} (skinning expected {expect}); fitted "
+                f"joints reproject {px[0]:.3f} px from the ground truth's "
+                f"keypoints on average (worst frame {px[1]:.3f} px)")
+            log(f"app run {name} timing.json: " + json.dumps(timing))
+            if on_card:
+                for k in SKIN_KERNELS:
+                    assert counts[k] == expect[k], (name, counts, expect)
+        # the masked stage descends from its post-gate peak (phase 3's rule)
+        gate = iters // 3
+        for f, tr in runs["use_mask"]["trace"].items():
+            post = tr[gate + 1:]
+            assert tr[gate + 1] > tr[gate], f"mask term not live (frame {f})"
+            assert post[-50:].mean() < 0.9 * post.max(), \
+                f"the masked stage did not descend (frame {f})"
+        for name, r in runs.items():
+            assert r["px"][1] <= size["max_px"][name], (name, r["px"])
+
+        rows, err = check_skin_kernels(rec, device, size["bench_batch"])
+        onoff = check_on_off(runs["use_mask"]["fit"], device)
+        return dict(runs=runs, rows=rows, err=err, onoff=onoff,
+                    subject=dict(write_s=subject["write_s"],
+                                 encode_ms=subject["encode_ms"],
+                                 decode_ms=subject["decode_ms"]))
+    finally:
+        bm.FUSED_SKINNING = "auto"
+        tmp.cleanup()
+
+
+def check_on_off(fit, device):
+    """At the mask run's final state: the loss and gradient with the
+    fused kernels ("on") against the matmul path ("auto"), and the
+    post-gate step time of each from that state."""
+    import torch
+
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.models import body_model as bm
+
+    model, config, prior = fit["model"], fit["config"], fit["prior"]
+    obs = smplify.concat_frames(fit["obs_list"])
+    params = fit["params"]
+    models = smplify.loss_models(model, config)
+    gate = config.num_iters // config.stage_gate_den
+    errs = {}
+    for what, step in (("keypoint stage", gate),
+                       ("masked stage", config.num_iters - 1)):
+        got = {}
+        for mode in ("on", "auto"):
+            bm.FUSED_SKINNING = mode
+            got[mode] = loss_and_grads(models, config, params, obs, prior,
+                                       step)
+        (lk, gk), (lp, gp) = got["on"], got["auto"]
+        top = max(float(g.abs().max()) for g in gp)
+        errs[what] = (float(((lk - lp).abs() / lp.abs()).max()),
+                      max(float((a - b).abs().max())
+                          for a, b in zip(gk, gp)) / top)
+    with torch.no_grad():
+        verts = {}
+        for mode in ("on", "auto"):
+            bm.FUSED_SKINNING = mode
+            verts[mode] = bm.forward(models[0], params.body).vertices
+        vert_err = float((verts["on"] - verts["auto"]).abs().max()
+                         / verts["auto"].abs().max())
+    (kl, kg), (ml, mg) = errs["keypoint stage"], errs["masked stage"]
+    log(f"check: at the mask run's final state, \"on\" vs \"auto\": the "
+        f"reduced model's vertices max err {vert_err:.3e} of their extent "
+        f"(tol 1e-5); keypoint-stage loss (step {gate}) max rel err "
+        f"{kl:.3e} (tol 1e-5), gradient {kg:.3e} of the largest entry (tol "
+        f"1e-4); masked-stage loss (step {config.num_iters - 1}) max rel "
+        f"err {ml:.3e} (tol 1e-5), gradient {mg:.3e} of the largest entry "
+        f"(tol 1e-4)")
+    assert vert_err <= 1e-5, vert_err
+    assert kl <= 1e-5 and kg <= 1e-4, errs["keypoint stage"]
+    assert ml <= 1e-5 and mg <= 1e-4, errs["masked stage"]
+    times = {}
+    for mode in ("auto", "on", "on", "auto"):
+        bm.FUSED_SKINNING = mode
+        fresh = smplify.FitParams.from_tensors(
+            [p.clone() for p in params.tensors()])
+        opt = smplify.make_optimizer(config, fresh)
+        step_fn = smplify.make_step_fn(model, config, obs, prior, opt)
+        steps_ms(step_fn, range(gate + 1, gate + 4), device)
+        times.setdefault(mode, []).append(
+            steps_ms(step_fn, range(gate + 4, gate + 34), device))
+    bm.FUSED_SKINNING = "on"
+    log("post-gate mask step at the same state, ms (host clock, 30 steps, "
+        "in the order auto, on, on, auto): "
+        + ", ".join(f"{m} {' / '.join(f'{t:.3f}' for t in v)}"
+                    for m, v in times.items()))
+    return dict(vert_err=vert_err, errs=errs, step_ms=times)
+
+
+def skin_rows(app):
+    """The two skinning rows of the kernel table: timed at the keypoint
+    run's joints-reduced shape (1,200 of its 1,202 forward launches),
+    every other captured shape and the bench batch under ``shapes``."""
+    keyp = app["runs"]["keypoints"]
+    table = []
+    for name, kind in (("skin_forward", "fwd"), ("skin_backward", "bwd")):
+        mine = [r for r in app["rows"] if r["kind"] == kind]
+        head = min(mine, key=lambda r: (r["B"] != 8, r["V"]))
+        table.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=TPU_KERNELS[name], launches=keyp["counts"][name],
+            max_abs_err=app["err"], ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            shape=f"B {head['B']} V {head['V']}",
+            launches_by_run={k: r["counts"][name]
+                             for k, r in app["runs"].items()},
+            shapes=[{k: r[k] for k in ("what", "B", "V", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}
+                    for r in mine]))
+    return table
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1500,6 +2083,8 @@ def main():
     table.append(nearest_row(scan))
     texture = phase_texture(scan, smi=smi)
     table.extend(texture["table"])
+    app = phase_app(smi=smi)
+    table.extend(skin_rows(app))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

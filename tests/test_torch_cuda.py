@@ -3,8 +3,8 @@
 Marked ``gpu``: they skip where no CUDA device is present and run on the
 card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.
 Tolerances as in ``chip_smoke.py``: the sampler, the match, the
-nearest-point query and the rasterizers round like their plain versions
-(built with ``-fmad=false``), so they agree exactly;
+nearest-point query, the rasterizers and the skinning round like their
+plain versions (built with ``-fmad=false``), so they agree exactly;
 the scatter is held to two launches being bitwise equal, and to the plain
 ``scatter_add_``, whose summation order differs, within 1e-6.
 """
@@ -233,3 +233,61 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.rasterize_zbuf(px.reshape(2, 6), fz, 8)
     with pytest.raises(ValueError):
         K.rasterize_attrs(px, fz, torch.zeros((2, 2, 2), device=dev), 8)
+    W = torch.ones((5, 3), device=dev)
+    A = torch.ones((1, 3, 12), device=dev)
+    vp = torch.ones((1, 5, 3), device=dev)
+    with pytest.raises(ValueError):
+        K.skin_forward(W.double(), A.double(), vp.double())
+    with pytest.raises(ValueError):
+        K.skin_forward(W, A, torch.ones((1, 3, 5), device=dev).transpose(1, 2))
+    with pytest.raises(ValueError):
+        K.skin_forward(torch.ones((5, 65), device=dev),
+                       torch.ones((1, 65, 12), device=dev), vp)
+
+
+@pytest.mark.parametrize("B,V,J", [(1, 10475, 55), (8, 10475, 55),
+                                   (8, 251, 55), (1, 300, 24), (3, 1, 55)])
+def test_skinning_kernels_match_plain_and_repeat_bitwise(dev, B, V, J):
+    """Forward, ``dA`` and ``dvp`` bitwise equal to the plain versions
+    (``-fmad=false``, the same order), at the full SMPL-X width, a
+    joints-reduced width (fewer rows than one 128-vertex tile's multiple),
+    SMPL's 24 joints and one vertex; rows of zero weight included.  Two
+    backward launches give the same bits (no atomics)."""
+    rng = np.random.default_rng(B * 7 + V + J)
+    W = rng.random((V, J)).astype(np.float32) ** 8
+    W /= W.sum(1, keepdims=True)
+    W[::11] = 0.0
+    A = rng.normal(size=(B, J, 12)).astype(np.float32)
+    vp = rng.normal(size=(B, V, 3)).astype(np.float32)
+    g = rng.normal(size=(B, V, 3)).astype(np.float32)
+    W, A, vp, g = (_t(x, dev) for x in (W, A, vp, g))
+    fb, bb = K.skin_forward.launches, K.skin_backward.launches
+    out = K.skin_forward(W, A, vp)
+    dA1, dvp1 = K.skin_backward(W, A, vp, g)
+    dA2, dvp2 = K.skin_backward(W, A, vp, g)
+    ref = K.skin_forward_plain(W, A, vp)
+    rdA, rdvp = K.skin_backward_plain(W, A, vp, g)
+    torch.cuda.synchronize()
+    assert K.skin_forward.launches == fb + 1
+    assert K.skin_backward.launches == bb + 2
+    assert torch.equal(out, ref)
+    assert torch.equal(dA1, dA2) and torch.equal(dvp1, dvp2)
+    assert torch.equal(dA1, rdA) and torch.equal(dvp1, rdvp)
+
+
+def test_skinning_autograd_runs_the_kernels(dev):
+    rng = np.random.default_rng(9)
+    W = _t(rng.random((700, 55)).astype(np.float32), dev)
+    A = _t(rng.normal(size=(2, 55, 12)).astype(np.float32), dev)
+    vp = _t(rng.normal(size=(2, 700, 3)).astype(np.float32), dev)
+    A.requires_grad_(True)
+    vp.requires_grad_(True)
+    fb, bb = K.skin_forward.launches, K.skin_backward.launches
+    out = K.fused_skinning(W, A, vp)
+    dA, dvp = torch.autograd.grad((out ** 2).sum(), [A, vp])
+    rdA, rdvp = K.skin_backward_plain(W, A.detach(), vp.detach(),
+                                      2 * out.detach())
+    torch.cuda.synchronize()
+    assert (K.skin_forward.launches, K.skin_backward.launches) == (fb + 1,
+                                                                   bb + 1)
+    assert torch.equal(dA, rdA) and torch.equal(dvp, rdvp)

@@ -52,9 +52,14 @@ def test_importing_the_port_loads_no_jax():
         "texture\n"
         "from bodyfitting_torch.losses import keypoints, mesh, priors, "
         "silhouette\n"
-        "from bodyfitting_torch.models import inpaint\n"
+        "from bodyfitting_torch.models import hmr, inpaint\n"
         "from bodyfitting_torch.ops import kernels, nearest, rasterize, sdf\n"
-        "from bodyfitting_torch.utils import uv_unwrap\n"
+        "from bodyfitting_torch.ops.kernels import skinning\n"
+        "from bodyfitting_torch.utils import observability, uv_unwrap\n"
+        "from bodyfitting_torch.apps import genebody\n"
+        "from bodyfitting_torch.fitting import sequence\n"
+        "from bodyfitting_torch.io import cameras, images, obj, openpose, "
+        "params, png\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bodyfitting_tpu')]\n"
         "assert not bad, bad\n"
@@ -99,6 +104,18 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         lambda: tf.inpaint_unseen(tex, np.ones((4, 4), bool)),
         lambda: Inpainter(),
     ]
+    # the GeneBody app and what it loads
+    from bodyfitting_torch.apps import genebody as app
+
+    args = app.config_parser().parse_args([])
+    calls += [
+        lambda: app.Runner(args),
+        lambda: app.main([]),
+        lambda: app.load_body_model(args),
+        lambda: app.load_prior(args),
+        lambda: bm.load_model("missing.npz"),
+        lambda: bf.HMRBundle.load("missing.pth"),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -135,12 +152,24 @@ def test_kernel_wrappers_refuse_other_devices():
     K.rasterize_zbuf(torch.zeros(1, 3, 2), torch.ones(1, 3), 8)
     K.rasterize_attrs(torch.zeros(1, 3, 2), torch.ones(1, 3),
                       torch.ones(1, 3, 2), 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.skin_forward(torch.empty((5, 3), device="meta"),
+                       torch.empty((1, 3, 12), device="meta"),
+                       torch.empty((1, 5, 3), device="meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        K.skin_backward(torch.ones((5, 3)), torch.ones((1, 3, 12)),
+                        torch.ones((1, 5, 3)),
+                        torch.empty((1, 5, 3), device="meta"))
+    K.fused_skinning(torch.ones((5, 3)), torch.ones((1, 3, 12)),
+                     torch.ones((1, 5, 3), requires_grad=True)).sum().backward()
     assert K.launch_counts() == {"bilinear_cov_grads": 0,
                                  "contour_match_full": 0,
                                  "rows_scatter_add": 0,
                                  "nearest_d2_idx": 0,
                                  "rasterize_zbuf": 0,
-                                 "rasterize_attrs": 0}
+                                 "rasterize_attrs": 0,
+                                 "skin_forward": 0,
+                                 "skin_backward": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

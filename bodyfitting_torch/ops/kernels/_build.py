@@ -171,6 +171,22 @@ def require(what: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{what}: {t.numel()} elements exceed int32 indexing")
 
 
+def geometry(name: str, symbol: str, ints) -> dict:
+    """The launch geometry that ``symbol`` of ``csrc/<name>.cu`` reports
+    for the sizes ``ints``: ``{"blocks", "threads", "smem_bytes"}`` (the
+    dynamic shared bytes a block).  Builds the library if needed."""
+    key = (name, symbol)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = [ctypes.c_int] * len(ints) + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+        _FNS[key] = fn
+    out = (ctypes.c_int * 3)()
+    fn(*[int(i) for i in ints], out)
+    return dict(blocks=out[0], threads=out[1], smem_bytes=out[2])
+
+
 def launch(name: str, symbol: str, device, ptrs, ints) -> None:
     """Call ``symbol`` of ``csrc/<name>.cu`` on ``device``'s current
     stream; raises if the launch was refused."""

@@ -87,6 +87,13 @@ def contour_match_full(contour: torch.Tensor, proj: torch.Tensor,
 contour_match_full.launches = 0
 
 
+def launch_geometry(BV: int, P: int, M: int) -> dict:
+    """The kernel's launch geometry at these sizes (builds it if needed):
+    ``{"blocks", "threads", "smem_bytes"}``."""
+    return _build.geometry("contour_match", "contour_match_full_geometry",
+                           [BV, P, M])
+
+
 def contour_min_idx(contour: torch.Tensor, proj: torch.Tensor,
                     valid: torch.Tensor):
     """:func:`contour_match_full` without payloads: ``(d2, idx)``."""

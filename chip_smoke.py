@@ -22,15 +22,22 @@ Phases; the first failure ends the run with a non-zero exit code:
    200.  Model and pose prior are the synthetic ones from seed 0 (the
    licensed SMPL-X and GMM files are not in the repository); keypoints
    and masks are rendered from seeded ground-truth bodies.  The launch
-   counters are zeroed just before the fit and read just after it.
+   counters are zeroed just before the fit and read just after it; the
+   loss trace's sha1 is printed (the kernels are deterministic, so runs
+   on one card that agree elsewhere agree on it).
 4. checks: the loss is finite, the mask term is live after the gate and
    the masked stage descends; at the fit's final state
    the loss and its gradient with the kernels equal those with the plain
    PyTorch versions on the card; a small fit on the card equals the same
    fit on the CPU (plain versions).
 5. kernels: each kernel against its plain version on the inputs the main
-   path gave it at its final state, and timed beside the plain version
-   and a PyTorch call that computes (nearly) the same function.
+   path gave it at its final state (the contour match and the scatter
+   bitwise, also on edge cases: exact ties at the lane stride, one valid
+   candidate, M = 1, P = 1, NaN points, 70,000 candidates, all entries
+   on one output, out-of-range indices, rows of several chunks), with
+   the launch geometry and the input statistics the designs depend on,
+   and timed beside the plain version and a PyTorch call that computes
+   (nearly) the same function.
 6. scan path: RenderPeople's SMPLify + SMPL+D fit of one scan with the
    synthetic SMPL model (6846 vertices, SPIN joints).  The scan is a
    seeded ground-truth body subdivided twice (219,008 faces) and pushed
@@ -92,6 +99,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -435,6 +443,90 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def match_edge_cases(card=False):
+    """Single rows that probe the contour kernel's design, as numpy
+    ``(contour [P, 2], proj [M, 2], valid [M], inside [M])`` by name.
+    Coordinates are integers and half-integers, so every d2 is exact and
+    ties are ties on any hardware.  ``card=True`` adds the cases the
+    Pallas kernel does not share: NaN points (the Pallas argmin takes a
+    NaN), and a row of 70,000 candidates (several shared-memory tiles)."""
+    rng = np.random.default_rng(7)
+
+    def row(P, M):
+        proj = np.round(rng.uniform(0, 64, size=(M, 2))).astype(np.float32)
+        contour = np.round(rng.uniform(-5, 70, size=(P, 2))).astype(
+            np.float32)
+        inside = rng.random(M).astype(np.float32)
+        return contour, proj, np.ones(M, np.float32), inside
+
+    cases = {}
+    # copies of one point at the lane stride (32 apart: one lane, one and
+    # several chunks of 128) and of another 31 and 33 apart (other lanes);
+    # a neighbour that ties with them from half a pixel
+    contour, proj, valid, inside = row(300, 700)
+    for j in (32, 64, 96, 128, 256, 512):
+        proj[j] = proj[0]
+    for j in (31, 33, 65, 161):
+        proj[j] = proj[1]
+    proj[200] = proj[0] + [1.0, 0.0]
+    contour[:8] = proj[[0, 1, 0, 1, 200, 31, 33, 0]]
+    contour[8:12] = proj[[0, 0, 1, 1]] + [[0.5, 0.0], [0.0, 0.5],
+                                          [0.5, 0.0], [0.0, 0.5]]
+    cases["ties at the lane stride"] = (contour, proj, valid, inside)
+    # the same row with invalid candidates, the first copies among them
+    valid = (rng.random(700) > 0.3).astype(np.float32)
+    valid[[0, 1, 31]] = 0.0
+    valid[[32, 33, 64, 65, 96, 128, 161, 200, 256, 512]] = 1.0
+    cases["ties among invalid candidates"] = (contour, proj, valid, inside)
+    for M in (129, 2619):
+        contour, proj, valid, inside = row(64, M)
+        valid[:] = 0.0
+        valid[-1] = 1.0
+        cases[f"only the last of {M} valid"] = (contour, proj, valid, inside)
+    cases["M 1"] = row(70, 1)
+    cases["P 1"] = row(1, 2619)
+    cases["P 1, M 1"] = row(1, 1)
+    if card:
+        contour, proj, valid, inside = row(300, 2619)
+        contour[[3, 50]] = np.nan
+        contour[60, 1] = np.nan
+        proj[[5, 40, 41]] = np.nan
+        proj[42, 0] = np.inf
+        proj[43] = -3e38
+        contour[70:74] = proj[[5, 42, 43, 44]]
+        valid[7] = np.nan
+        cases["NaN points"] = (contour, proj, valid, inside)
+        contour, proj, valid, inside = row(200, 70_000)
+        proj[[40_000, 69_999]] = proj[[100, 3100]]
+        valid = (rng.random(70_000) > 0.4).astype(np.float32)
+        valid[[100, 3100, 40_000, 69_999]] = 1.0
+        contour[:4] = proj[[100, 3100, 100, 3100]]
+        cases["tiled, 70,000 candidates"] = (contour, proj, valid, inside)
+    return cases
+
+
+def scatter_edge_cases():
+    """Single rows that probe the scatter kernel's design, as numpy
+    ``(idx [P] int32, g [P, 2], M)`` by name: all entries on one output,
+    negative and out-of-range indices, P = 1 and M = 1, and rows longer
+    than one block's chunk of 1,024 entries with runs across chunks."""
+    rng = np.random.default_rng(8)
+
+    def g(P):
+        return rng.normal(size=(P, 2)).astype(np.float32)
+
+    cases = {"3001 entries on one output": (
+        np.full(3001, 7, np.int32), g(3001), 2619)}
+    cases["negative and out-of-range"] = (
+        rng.integers(-50, 150, size=700).astype(np.int32), g(700), 100)
+    cases["P 1"] = (np.array([3], np.int32), g(1), 5)
+    cases["M 1"] = (rng.integers(-1, 2, size=40).astype(np.int32), g(40), 1)
+    idx = rng.integers(0, 300, size=2500).astype(np.int32)
+    idx[1000:1100] = 11                       # a run across a chunk edge
+    cases["2500 entries, 3 chunks"] = (idx, g(2500), 300)
+    return cases
+
+
 def touched_taps(img, xy):
     """``(near, taps)`` of a bilinear sample of ``img [BV, H, W]`` at
     ``xy [BV, N, 2]``: the points whose 4 taps reach the image, and the
@@ -492,7 +584,8 @@ def phase_build():
     secs = _build.build_all()
     log(f"build: {len(_build.SOURCES)} kernels in {secs:.2f} s")
     for name, out in _build.build_log.items():
-        regs = [ln.strip() for ln in out.splitlines() if "Used" in ln]
+        regs = [ln.strip() for ln in out.splitlines()
+                if "Used" in ln or "spill" in ln]
         log(f"  {name}: " + " | ".join(regs))
 
 
@@ -559,6 +652,8 @@ def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
         f"launches {launches}")
 
     losses = losses.cpu().numpy()
+    digest = hashlib.sha1(np.ascontiguousarray(losses).tobytes()).hexdigest()
+    log(f"main path loss trace {losses.shape} {losses.dtype}: sha1 {digest}")
     assert np.isfinite(losses).all(), "non-finite loss"
     assert result["vertices"].shape == (B, V, 3)
     assert torch.isfinite(result["vertices"]).all()
@@ -605,7 +700,7 @@ def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
         profile_steps(step_fn, range(gate + 4 + n, gate + 24 + n))
     return dict(model=model, prior=prior, obs=obs, params=params,
                 config=config, models=models, launches=launches,
-                wall=wall, pre_ms=pre, post_ms=post)
+                wall=wall, pre_ms=pre, post_ms=post, digest=digest)
 
 
 def profile_steps(step_fn, steps, what="post-gate steps"):
@@ -748,25 +843,35 @@ def phase_kernels(state):
                      plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
 
     # --- contour_match_full (+ contour_min_idx on the same kernel)
+    from bodyfitting_torch.ops.kernels import contour_match, rows_scatter
+
     ((cargs, _),) = calls["contour_match_full"]
     contour, proj, valid, inside = cargs
-    got = K.contour_match_full(*cargs)
-    ref = K.contour_match_full_plain(*cargs)
-    torch.cuda.synchronize()
-    assert torch.equal(got[1], ref[1]), "contour_match_full idx differ"
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(got, ref))
-    d2m, idxm = K.contour_min_idx(contour, proj, valid)
-    d2p, idxp, _, _ = K.contour_match_full_plain(
-        contour, proj, valid, torch.zeros_like(valid))
-    assert torch.equal(idxm, idxp), "contour_min_idx idx differ"
-    err = max(err, float((d2m - d2p).abs().max()))
+    cases = {"captured": cargs}
+    cases.update({k: [torch.as_tensor(a[None], device=contour.device)
+                      for a in arrays]
+                  for k, arrays in match_edge_cases(card=True).items()})
+    for what, args in cases.items():
+        got = K.contour_match_full(*args)
+        ref = K.contour_match_full_plain(*args)
+        d2m, idxm = K.contour_min_idx(*args[:3])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        same_min = torch.equal(idxm, ref[1]) and torch.equal(d2m, ref[0])
+        log(f"contour_match_full {what} (BV {args[0].shape[0]}, P "
+            f"{args[0].shape[1]}, M {args[1].shape[1]}): d2, idx, matched, "
+            f"in_match bitwise equal to plain: {same}; contour_min_idx: "
+            f"{same_min} (tol: exact)")
+        assert same and same_min, f"contour_match_full differs ({what})"
+        if what == "captured":
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, ref))
     _, P, _ = contour.shape
     M = proj.shape[1]
-    log(f"contour_match_full BV {BV} P {P} M {M}: idx equal, payload max "
-        f"abs err {err:.3e} (tol 0: same rounding); contour_min_idx idx "
-        f"equal")
-    assert err == 0.0
+    geo = contour_match.launch_geometry(BV, P, M)
+    share = float((valid > 0).float().mean())
+    log(f"contour_match_full launch: {geo}; valid share of candidates "
+        f"{share:.4f} ({int((valid > 0).sum())} of {valid.numel()})")
     ms = cuda_ms(lambda: K.contour_match_full(*cargs))
     plain = cuda_ms(lambda: K.contour_match_full_plain(*cargs), reps=10)
     lib = cuda_ms(lambda: torch.cdist(contour, proj).argmin(-1), reps=10)
@@ -783,30 +888,38 @@ def phase_kernels(state):
     # --- rows_scatter_add: the ICP backward's cotangent onto the matches
     ((sargs, _),) = calls["rows_scatter_add"]
     idx, g, Mc = sargs
-    r1 = K.rows_scatter_add(idx, g, Mc)
-    r2 = K.rows_scatter_add(idx, g, Mc)
-    ref = K.rows_scatter_add_plain(idx, g, Mc)
-    torch.cuda.synchronize()
-    assert torch.equal(r1, r2), "rows_scatter_add is not bitwise repeatable"
-    err = float((r1 - ref).abs().max())
-    # two summation orders of n terms differ by at most 2 n eps sum|g|
-    n_terms = K.rows_scatter_add_plain(idx, torch.ones_like(g), Mc)
-    bound = 2 * n_terms * 2.0 ** -23 * K.rows_scatter_add_plain(
-        idx, g.abs(), Mc)
-    ok = bool(((r1 - ref).abs() <= bound).all())
-    log(f"rows_scatter_add BV {BV} P {idx.shape[1]} C {g.shape[2]} M {Mc}: "
-        f"two launches bitwise equal; max abs err vs plain {err:.3e}, "
-        f"within 2 n eps sum|g| everywhere: {ok} (the plain scatter_add_ "
-        f"sums in another order)")
-    assert ok
-    ms = cuda_ms(lambda: K.rows_scatter_add(idx, g, Mc))
-    plain = cuda_ms(lambda: K.rows_scatter_add_plain(idx, g, Mc), reps=10)
-    host = host_ms(lambda: K.rows_scatter_add(idx, g, Mc))
+    cases = {"captured": sargs}
+    for k, (i, gg, m) in scatter_edge_cases().items():
+        cases[k] = (torch.as_tensor(np.stack([i, i[::-1].copy()]),
+                                    device=idx.device),
+                    torch.as_tensor(np.stack([gg, gg[::-1].copy()]),
+                                    device=idx.device), m)
+    for what, args in cases.items():
+        r1 = K.rows_scatter_add(*args)
+        r2 = K.rows_scatter_add(*args)
+        ref = K.rows_scatter_add_plain(*args)
+        torch.cuda.synchronize()
+        repeat, same = torch.equal(r1, r2), torch.equal(r1, ref)
+        log(f"rows_scatter_add {what} (BV {args[0].shape[0]}, P "
+            f"{args[0].shape[1]}, M {args[2]}): two launches bitwise equal: "
+            f"{repeat}; bitwise equal to the ascending-p plain version: "
+            f"{same} (tol: exact)")
+        assert repeat and same, f"rows_scatter_add differs ({what})"
+        if what == "captured":
+            err = float((r1 - ref).abs().max())
     C = g.shape[2]
     keep = (idx >= 0) & (idx < Mc)
     flat = torch.where(
         keep, idx.long() + Mc * torch.arange(BV, device=idx.device)[:, None],
         BV * Mc).reshape(-1)
+    runs = torch.unique(flat[flat < BV * Mc], return_counts=True)[1]
+    geo = rows_scatter.launch_geometry(BV, idx.shape[1], Mc)
+    log(f"rows_scatter_add launch: {geo}; {int(keep.sum())} of "
+        f"{keep.numel()} entries in range, {runs.numel()} distinct outputs, "
+        f"longest run of one idx {int(runs.max()) if runs.numel() else 0}")
+    ms = cuda_ms(lambda: K.rows_scatter_add(idx, g, Mc))
+    plain = cuda_ms(lambda: K.rows_scatter_add_plain(idx, g, Mc), reps=10)
+    host = host_ms(lambda: K.rows_scatter_add(idx, g, Mc))
     gflat = g.reshape(-1, C)
     acc = torch.zeros((BV * Mc + 1, C), device=g.device)
     lib = cuda_ms(lambda: acc.index_add_(0, flat, gflat))

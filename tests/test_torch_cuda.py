@@ -5,8 +5,8 @@ card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.
 Tolerances as in ``chip_smoke.py``: the sampler, the match, the
 nearest-point query, the rasterizers and the skinning round like their
 plain versions (built with ``-fmad=false``), so they agree exactly;
-the scatter is held to two launches being bitwise equal, and to the plain
-``scatter_add_``, whose summation order differs, within 1e-6.
+the scatter and its plain version both sum in ascending ``p``, so they
+agree bitwise too, and two launches are bitwise equal.
 """
 
 import numpy as np
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from bodyfitting_torch.ops import kernels as K
+from chip_smoke import match_edge_cases, scatter_edge_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -75,12 +76,62 @@ def test_rows_scatter_kernel_is_deterministic_and_matches_plain(dev):
     idx[:, :60] = 7
     g = rng.normal(size=(4, P, 2)).astype(np.float32)
     idx, g = _t(idx, dev), _t(g, dev)
+    before = K.rows_scatter_add.launches
     a = K.rows_scatter_add(idx, g, M)
     b = K.rows_scatter_add(idx, g, M)
     ref = K.rows_scatter_add_plain(idx, g, M)
     torch.cuda.synchronize()
+    assert K.rows_scatter_add.launches == before + 2
     assert torch.equal(a, b)
-    torch.testing.assert_close(a, ref, rtol=0, atol=1e-6 * 60)
+    assert torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("case", list(match_edge_cases(card=True)))
+def test_contour_match_kernel_edge_cases(dev, case):
+    """Ties at the lane stride, also among invalid candidates; only the last
+    candidate valid; M = 1, P = 1; NaN and infinite points; 70,000
+    candidates (several shared-memory tiles): all four outputs and
+    ``contour_min_idx`` bitwise the plain version."""
+    arrays = match_edge_cases(card=True)[case]
+    args = [_t(a[None], dev) for a in arrays]
+    got = K.contour_match_full(*args)
+    ref = K.contour_match_full_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    d2, idx = K.contour_min_idx(*args[:3])
+    assert torch.equal(idx, ref[1]) and torch.equal(d2, ref[0])
+
+
+@pytest.mark.parametrize("case", list(scatter_edge_cases()))
+def test_rows_scatter_kernel_edge_cases(dev, case):
+    """All entries on one output, negative and out-of-range indices, P = 1,
+    M = 1, and rows of several 1,024-entry chunks: bitwise the plain
+    version, and launch to launch."""
+    idx, g, M = scatter_edge_cases()[case]
+    idx = _t(np.stack([idx, idx[::-1].copy()]), dev)
+    g = _t(np.stack([g, g[::-1].copy()]), dev)
+    a = K.rows_scatter_add(idx, g, M)
+    b = K.rows_scatter_add(idx, g, M)
+    ref = K.rows_scatter_add_plain(idx, g, M)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, ref)
+
+
+def test_icp_kernels_launch_geometry(dev):
+    """The geometry at the production shape (BV 64, P 512, M 2,619): 128
+    contour pixels a block of 512 threads, the row's 2,619 candidates
+    staged as 2,688 (21 chunks of 128) float2; one scatter block a row, a
+    thread an entry."""
+    from bodyfitting_torch.ops.kernels import contour_match, rows_scatter
+
+    assert contour_match.launch_geometry(64, 512, 2619) == dict(
+        blocks=256, threads=512, smem_bytes=2688 * 8)
+    assert contour_match.launch_geometry(2, 200, 70_000) == dict(
+        blocks=4, threads=512, smem_bytes=3072 * 8)
+    assert rows_scatter.launch_geometry(64, 512, 2619) == dict(
+        blocks=64, threads=512, smem_bytes=512 * 24)
+    assert rows_scatter.launch_geometry(1, 3001, 5)["threads"] == 1024
 
 
 @pytest.mark.parametrize("Q,F", [(3001, 5003), (70, 40000)])
@@ -219,6 +270,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K.rows_scatter_add(torch.zeros((1, 4), dtype=torch.int64, device=dev),
                            torch.zeros((1, 4, 2), device=dev), 8)
+    with pytest.raises(ValueError, match="22-bit key"):
+        K.rows_scatter_add(torch.zeros((1, 4), dtype=torch.int32, device=dev),
+                           torch.zeros((1, 4, 2), device=dev), 2 ** 22 - 1)
     with pytest.raises(ValueError):
         K.nearest_d2_idx(torch.zeros((4, 3), dtype=torch.float64, device=dev),
                          torch.zeros((2, 3, 3), dtype=torch.float64,

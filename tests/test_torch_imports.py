@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "bodyfitting_tpu")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n)
+             for n in ("chip_smoke.py", "bench_icp_kernels.py")]
     for root, _, names in os.walk(os.path.join(REPO, "bodyfitting_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

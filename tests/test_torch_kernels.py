@@ -10,8 +10,11 @@ Tolerances:
     kink points (integer coordinates) left out of derivative checks,
     where autodiff of the hinge picks other subgradients;
   * contour match: ``idx`` exactly equal, payloads equal, ``d2`` to
-    1 ulp (XLA:CPU fuses the multiply-add, the port does not);
-  * rows scatter: 1e-6 (f32 sums in another order).
+    1 ulp (XLA:CPU fuses the multiply-add, the port does not); on the
+    edge cases, whose coordinates make every d2 exact, all four bitwise;
+  * rows scatter: 1e-6, or 2 n eps sum|g| for runs of n entries (f32
+    sums in another order); the plain version bitwise against an
+    explicit float32 loop in ascending ``p``.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ import jax
 from bodyfitting_tpu.losses import silhouette as jsil
 from bodyfitting_tpu.ops import pallas_kernels as pk
 from bodyfitting_torch.ops import kernels as K
+from chip_smoke import match_edge_cases, scatter_edge_cases
 
 
 def _points(rng, H, W, n):
@@ -202,3 +206,63 @@ def test_rows_scatter_add_takes_two_columns_only():
     for C in (1, 3):
         with pytest.raises(ValueError, match="BV, P, 2"):
             K.rows_scatter_add(idx, torch.ones(1, 4, C), 3)
+
+
+@pytest.mark.parametrize("case", list(match_edge_cases()))
+def test_contour_match_edge_cases_match_pallas(case):
+    """Ties at the lane stride and across chunks, also among invalid
+    candidates; a row whose only valid candidate is the last; M = 1 and
+    P = 1: all four outputs bitwise."""
+    contour, proj, valid, inside = match_edge_cases()[case]
+    t = torch.from_numpy
+    got = K.contour_match_full(t(contour[None]), t(proj[None]),
+                               t(valid[None]), t(inside[None]))
+    ref = pk.contour_match_full(jnp.asarray(contour), jnp.asarray(proj),
+                                jnp.asarray(valid), jnp.asarray(inside),
+                                interpret=True)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(r))
+    d2, idx = K.contour_min_idx(t(contour[None]), t(proj[None]),
+                                t(valid[None]))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(d2[0].numpy(), np.asarray(ref[0]))
+
+
+def _ascending_loop(idx, g, M):
+    """The contract written out: float32 sums from 0, ascending ``p``."""
+    out = np.zeros(idx.shape[:1] + (g.shape[-1], M), np.float32)
+    for b in range(idx.shape[0]):
+        for p in range(idx.shape[1]):
+            m = idx[b, p]
+            if 0 <= m < M:
+                out[b, :, m] += g[b, p]
+    return out
+
+
+def test_rows_scatter_add_plain_sums_in_ascending_p(rng):
+    BV, P, M = 8, 3001, 500
+    idx = rng.integers(-20, M + 20, size=(BV, P)).astype(np.int32)
+    idx[:, 100:400] = 3                            # long runs
+    idx[2] = 9
+    g = (rng.normal(size=(BV, P, 2)) * 10.0 ** rng.integers(
+        -3, 4, size=(BV, P, 1))).astype(np.float32)
+    got = K.rows_scatter_add_plain(torch.from_numpy(idx),
+                                   torch.from_numpy(g), M)
+    np.testing.assert_array_equal(got.numpy(), _ascending_loop(idx, g, M))
+
+
+@pytest.mark.parametrize("case", list(scatter_edge_cases()))
+def test_rows_scatter_add_edge_cases(case):
+    """Bitwise the ascending loop; against the Pallas kernel within the
+    bound of two summation orders of a run's n entries."""
+    idx, g, M = scatter_edge_cases()[case]
+    got = K.rows_scatter_add(torch.from_numpy(idx[None]),
+                             torch.from_numpy(g[None]), M)[0].numpy()
+    np.testing.assert_array_equal(got, _ascending_loop(idx[None], g[None],
+                                                       M)[0])
+    ref = np.asarray(pk.rows_scatter_add(jnp.asarray(idx), jnp.asarray(g),
+                                         M, interpret=True))
+    n = _ascending_loop(idx[None], np.ones_like(g)[None], M)[0]
+    bound = 2 * n * 2.0 ** -23 * _ascending_loop(idx[None], np.abs(g)[None],
+                                                 M)[0]
+    assert (np.abs(got - ref) <= bound).all()

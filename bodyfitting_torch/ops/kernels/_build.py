@@ -171,10 +171,12 @@ def require(what: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{what}: {t.numel()} elements exceed int32 indexing")
 
 
-def geometry(name: str, symbol: str, ints) -> dict:
+def geometry(name: str, symbol: str, ints,
+             keys=("blocks", "threads", "smem_bytes")) -> dict:
     """The launch geometry that ``symbol`` of ``csrc/<name>.cu`` reports
-    for the sizes ``ints``: ``{"blocks", "threads", "smem_bytes"}`` (the
-    dynamic shared bytes a block).  Builds the library if needed."""
+    for the sizes ``ints``, one int for each of ``keys`` (by default
+    ``{"blocks", "threads", "smem_bytes"}``, the last the dynamic shared
+    bytes a block).  Builds the library if needed."""
     key = (name, symbol)
     fn = _FNS.get(key)
     if fn is None:
@@ -182,9 +184,9 @@ def geometry(name: str, symbol: str, ints) -> dict:
         fn.argtypes = [ctypes.c_int] * len(ints) + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = None
         _FNS[key] = fn
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * len(keys))()
     fn(*[int(i) for i in ints], out)
-    return dict(blocks=out[0], threads=out[1], smem_bytes=out[2])
+    return dict(zip(keys, out))
 
 
 def launch(name: str, symbol: str, device, ptrs, ints) -> None:

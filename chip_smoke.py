@@ -88,7 +88,11 @@ Phases; the first failure ends the run with a non-zero exit code:
    one backward a step, one forward a batch for the output), the kernels
    bitwise against their plain versions at every shape the app gave them,
    and the mask loss and gradient with the kernels against the matmul
-   path; then the kernels timed there and at 128 frames of full width.
+   path; then the kernels timed there and at 128 frames of full width,
+   beside their bound, their -fmad=false issue floor and the times of
+   their previous design, with each launch's geometry.  Each run's fitted
+   parameters are hashed (sha1): the kernels equal the same plain
+   versions in every design, so the hash holds across designs.
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1892,6 +1896,32 @@ def reprojection_px(subject, params, frames):
     return float(np.mean(per)), float(np.max(per))
 
 
+# Instruction issue of one H100 SXM for float32 work built with
+# -fmad=false (each multiply and add its own instruction): 132 SMs x 128
+# lanes x 1.98 GHz.  The skinning's operation count over this rate is the
+# floor its kernels can reach; skin_bound divides by the published peak,
+# which counts a fused multiply-add as two.
+F32_ISSUE_PER_S = 132 * 128 * 1.98e9
+
+# Device microseconds (forward, backward) of the skinning kernels' previous
+# design (a block a 128-vertex tile and frame; the backward's tile sum a
+# second launch), measured by this script's phase 9 on an NVIDIA H100 80GB
+# HBM3 at 700 W, at the shapes the app gives them and the bench batch.
+SKIN_BEFORE_US = {(8, 564): (15.1, 22.6), (8, 3035): (15.9, 25.1),
+                  (8, 10475): (18.5, 38.3), (128, 10475): (213.6, 427.0)}
+
+
+def params_sha1(params):
+    """sha1 of an app run's fitted parameters: every frame's arrays, in
+    frame and key order."""
+    h = hashlib.sha1()
+    for f in sorted(params):
+        for k in sorted(params[f]):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(params[f][k]).tobytes())
+    return h.hexdigest()
+
+
 def skin_bound(B, V, J, backward):
     """Bytes and operations of the function itself: W, A and vp (and g)
     read once, the outputs written once. The forward needs 2 J 12
@@ -1943,6 +1973,7 @@ def check_skin_kernels(rec, device, bench_batch, seed=0):
     import torch
 
     from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.kernels import skinning
 
     gen = np.random.default_rng(seed)
     cases = {}
@@ -1985,9 +2016,19 @@ def check_skin_kernels(rec, device, bench_batch, seed=0):
         for kind in ("fwd", "bwd"):
             ms, plain, auto = tm[kind]
             b, by = skin_bound(B, V, J, kind == "bwd")
+            geo = skinning.kernel_geometry(B, V, J, kind == "bwd")
+            assert geo == skinning.launch_geometry(B, V, J, kind == "bwd"), \
+                f"skinning {kind} geometry {geo} is not launch_geometry's"
+            ops = B * V * (42 * J + 24 if kind == "bwd" else 24 * J + 18)
+            before = SKIN_BEFORE_US.get((B, V))
             log(f"skinning {kind} {what}: {ms:.4f} ms, plain {plain:.3f} ms, "
                 f"\"auto\" (matmul + einsum{'' if kind == 'fwd' else ', autograd backward'}) "
-                f"{auto:.4f} ms, bound {b:.5f} ms ({by})")
+                f"{auto:.4f} ms, bound {b:.5f} ms ({by}), -fmad=false issue "
+                f"floor {ops / F32_ISSUE_PER_S * 1e3:.5f} ms ({ops / 1e9:.3f} "
+                f"G instructions); previous design "
+                + (f"{before[kind == 'bwd'] / 1e3:.4f} ms" if before else "not "
+                   "measured at this shape")
+                + f"; launch {geo}")
             rows.append(dict(what=what, kind=kind, B=B, V=V, ms=ms,
                              plain_ms=plain, library_ms=auto, bound_ms=b,
                              bound_by=by))
@@ -2050,8 +2091,12 @@ def phase_app(size=APP_PATH, device="cuda", smi=""):
                           skin_backward=batches * n_iter)
             params, trace, timing = read_app_outputs(out, list(frames))
             px = reprojection_px(subject, params, list(frames))
+            digest = params_sha1(params)
+            log(f"app run {name}: fitted parameters sha1 {digest} "
+                f"(FUSED_SKINNING \"on\")")
             runs[name] = dict(wall=wall, counts=counts, expect=expect,
                               trace=trace, timing=timing, px=px,
+                              params_sha1=digest,
                               fit=fits[-1] if name == "use_mask" else None,
                               frames=len(frames), iters=n_iter)
             log(f"app run {name}: {len(frames)} frames, {n_iter} iterations, "

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from bodyfitting_torch.ops import kernels as K
+from bodyfitting_torch.ops.kernels import skinning
 from chip_smoke import match_edge_cases, scatter_edge_cases
 
 pytestmark = pytest.mark.gpu
@@ -297,16 +298,30 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K.skin_forward(torch.ones((5, 65), device=dev),
                        torch.ones((1, 65, 12), device=dev), vp)
+    W6 = torch.ones((6, 3), device=dev)[1:]        # 12 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        K.skin_forward(W6, A, vp)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.skin_backward(W6, A, vp, vp)
 
 
 @pytest.mark.parametrize("B,V,J", [(1, 10475, 55), (8, 10475, 55),
-                                   (8, 251, 55), (1, 300, 24), (3, 1, 55)])
+                                   (8, 251, 55), (1, 300, 24), (3, 1, 55),
+                                   (128, 10475, 55), (130, 1031, 64),
+                                   (64, 2999, 24), (13, 2999, 24),
+                                   (5, 1031, 64)])
 def test_skinning_kernels_match_plain_and_repeat_bitwise(dev, B, V, J):
     """Forward, ``dA`` and ``dvp`` bitwise equal to the plain versions
-    (``-fmad=false``, the same order), at the full SMPL-X width, a
-    joints-reduced width (fewer rows than one 128-vertex tile's multiple),
-    SMPL's 24 joints and one vertex; rows of zero weight included.  Two
-    backward launches give the same bits (no atomics)."""
+    (``-fmad=false``, the same order), at the full SMPL-X width (one, 8
+    and 128 frames), a joints-reduced width (fewer rows than one
+    128-vertex tile's multiple), SMPL's 24 joints, 64 joints and one
+    vertex, the backward in the geometry it takes by size and in each of
+    its two (latency and throughput); frame counts that are no multiple
+    of a block's frames, vertex counts that are no multiple of 4 (the W
+    tile's tail after its bulk copy); rows of zero weight included.  Two
+    backward launches give the same bits (no atomics; the election
+    counters are back at 0).  The geometry the kernels report is the one
+    ``launch_geometry`` states."""
     rng = np.random.default_rng(B * 7 + V + J)
     W = rng.random((V, J)).astype(np.float32) ** 8
     W /= W.sum(1, keepdims=True)
@@ -327,6 +342,12 @@ def test_skinning_kernels_match_plain_and_repeat_bitwise(dev, B, V, J):
     assert torch.equal(out, ref)
     assert torch.equal(dA1, dA2) and torch.equal(dvp1, dvp2)
     assert torch.equal(dA1, rdA) and torch.equal(dvp1, rdvp)
+    for wide in (0, 1):
+        dA, dvp = skinning._launch_backward(W, A, vp, g, wide)
+        assert torch.equal(dA, rdA) and torch.equal(dvp, rdvp)
+    for backward, wide in ((False, -1), (True, -1), (True, 0), (True, 1)):
+        assert skinning.kernel_geometry(B, V, J, backward, wide) == \
+            skinning.launch_geometry(B, V, J, backward, wide)
 
 
 def test_skinning_autograd_runs_the_kernels(dev):

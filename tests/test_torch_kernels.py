@@ -228,6 +228,58 @@ def test_contour_match_edge_cases_match_pallas(case):
     np.testing.assert_array_equal(d2[0].numpy(), np.asarray(ref[0]))
 
 
+@pytest.mark.parametrize("contour", [
+    [[1, 2], [5, 5], [4, 4], [0, 0], [3, 6]],
+    [[2, 2], [9, 9], [3, 3], [1, 1], [6, 1], [5, 6]],
+])
+def test_contour_match_nan_candidate_matches_xla_route(monkeypatch,
+                                                       contour):
+    """A row with an invalid NaN candidate (a vertex at camera z = 0,
+    which projects to 0/0): the port's plain match against the JAX XLA
+    route of ``silhouette_loss`` (``CONTOUR_MATCH = "xla"``), whose
+    argmin input and output are recorded.  ``idx`` and ``d2`` agree
+    exactly (integer coordinates: every d2 is exact).  The route's
+    one-hot matmul makes every matched coordinate NaN (0 x NaN), so
+    ``matched`` and ``in_match`` are held to a gather at its ``idx``, which
+    is what the one-hot stands for.  Unlike the Pallas kernel, neither
+    loses the row's other candidates (ROADMAP.md §3)."""
+    monkeypatch.setattr(jsil, "CONTOUR_MATCH", "xla")
+    seen = []
+    argmin = jnp.argmin
+
+    def recorded(x, axis=None, **kw):
+        out = argmin(x, axis=axis, **kw)
+        jax.debug.callback(
+            lambda d2, i: seen.append((np.asarray(d2), np.asarray(i))), x, out)
+        return out
+
+    monkeypatch.setattr(jnp, "argmin", recorded)
+    # identity cameras at the origin: proj = (x / z, y / z), exactly
+    verts = np.array([[1, 2, 1], [0, 0, 0], [5, 5, 1], [3, 7, 1]],
+                     np.float32)
+    contour = np.asarray(contour, np.float32)
+    loss = jsil.silhouette_loss(
+        jnp.asarray(contour[None]), jnp.ones((1, len(contour))),
+        jnp.ones((1, 16, 16)), jnp.eye(4)[None], jnp.eye(3)[None],
+        jnp.asarray(verts), vertex_stride=1, imsize=16.0)
+    jax.effects_barrier()
+    monkeypatch.undo()
+    assert np.isnan(float(loss))         # the route's 0 x NaN, as stated
+    ((d2_xla, idx_xla),) = seen
+    with np.errstate(invalid="ignore"):
+        proj = verts[:, :2] / verts[:, 2:]
+    inside = ((proj >= 0) & (proj < 16)).all(-1).astype(np.float32)
+    assert inside.tolist() == [1, 0, 1, 1]
+    t = torch.from_numpy
+    d2, idx, matched, in_match = K.contour_match_full_plain(
+        t(contour[None]), t(proj[None]), t(inside[None]), t(inside[None]))
+    np.testing.assert_array_equal(idx[0].numpy(), idx_xla)
+    np.testing.assert_array_equal(
+        d2[0].numpy(), d2_xla[np.arange(len(contour)), idx_xla])
+    np.testing.assert_array_equal(matched[0].numpy(), proj[idx_xla])
+    np.testing.assert_array_equal(in_match[0].numpy(), inside[idx_xla])
+
+
 def _ascending_loop(idx, g, M):
     """The contract written out: float32 sums from 0, ascending ``p``."""
     out = np.zeros(idx.shape[:1] + (g.shape[-1], M), np.float32)

@@ -68,6 +68,50 @@ def test_plain_skinning_matches_jax(J, V):
             assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
 
 
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B,V,J", [(8, 564, 55), (8, 3035, 55),
+                                   (8, 10475, 55), (128, 10475, 55),
+                                   (130, 1031, 64), (3, 1, 24), (1, 0, 55)])
+def test_launch_geometry_covers_each_pair_once(B, V, J, backward):
+    """The kernels' launch geometry (each of the backward's two, and the
+    one it takes by size): whole warps a frame, at most 1,024 / VR threads
+    (the kernels' launch bounds) and 227 KB of shared memory a block, the
+    backward's vertex tile the dA contract's; the blocks' threads (thread
+    t < (TV / VR) FB owns vertices t mod (TV / VR) + r TV / VR, r < VR, of
+    frame t div (TV / VR)) cover every (vertex, frame) exactly once."""
+    by_size = S.launch_geometry(B, V, J, backward)
+    if backward:
+        both = [S.launch_geometry(B, V, J, True, w) for w in (0, 1)]
+        assert by_size == both[B >= S.WIDE_FRAMES and B * V >= S.WIDE_PAIRS]
+        assert [g["CW"] for g in both] == [4, 12]
+    else:
+        both = [by_size]
+    for geo in both:
+        TV, FB, VR, threads = geo["TV"], geo["FB"], geo["VR"], geo["threads"]
+        tpf = TV // VR
+        assert TV % (32 * VR) == 0 and tpf * FB <= threads <= 1024 // VR
+        assert threads % 32 == 0 and (backward or threads == tpf * FB)
+        assert geo["smem_bytes"] <= 227 * 1024 - 16     # beside 16 static
+        assert geo["smem_bytes"] == 4 * (TV * J + FB * J * 12
+                                         + backward * FB * TV * 12)
+        if backward:
+            assert TV == S.TILE
+            assert threads == tpf * FB + 32 * FB * 12 // geo["CW"]
+        nx = max(1, -(-V // TV)) if backward else -(-V // TV)
+        ny = -(-B // FB)
+        assert geo["blocks"] == nx * ny
+        count = np.zeros((B, V), np.int64)
+        t = np.arange(threads)
+        t = t[t // tpf < FB]                # later warps own no vertex
+        for bx in range(nx):
+            for by in range(ny):
+                for r in range(VR):
+                    v, b = bx * TV + t % tpf + r * tpf, by * FB + t // tpf
+                    ok = (v < V) & (b < B)
+                    np.add.at(count, (b[ok], v[ok]), 1)
+        assert (count == 1).all()
+
+
 def test_backward_plain_is_the_stated_order():
     """``dA`` is the sum, in tile order, of per-tile sums of 128
     vertices: bitwise the same as that order written out vertex by

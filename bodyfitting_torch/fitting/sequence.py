@@ -77,6 +77,7 @@ def fit_sequence(model, config: smplify.FitConfig, obs: smplify.Observations,
         [t.detach().clone() for t in init.tensors()])
     opt = smplify.make_optimizer(config, params)
     loss_model, joints_model, mask_rows = smplify.loss_models(model, config)
+    step_obs = smplify.step_observations(obs)
     leaves = opt.params
     losses = []
     for step in range(config.num_iters):
@@ -84,7 +85,7 @@ def fit_sequence(model, config: smplify.FitConfig, obs: smplify.Observations,
             p.requires_grad_(True)
         cur = smplify.FitParams.from_tensors(leaves)
         frame_losses, _ = smplify.fit_loss(
-            loss_model, config, cur, obs, step, pose_prior_fn,
+            loss_model, config, cur, step_obs, step, pose_prior_fn,
             joints_model=joints_model, mask_vertex_rows=mask_rows)
         if frame_valid is not None:
             frame_losses = frame_losses * frame_valid

@@ -40,7 +40,10 @@ from bodyfitting_torch.losses.mesh import (
     normal_loss,
     point_cloud_loss,
 )
-from bodyfitting_torch.losses.silhouette import silhouette_loss
+from bodyfitting_torch.losses.silhouette import (
+    mask_crops_bits,
+    silhouette_loss,
+)
 from bodyfitting_torch.models import body_model as bm
 from bodyfitting_torch.ops import sdf
 from bodyfitting_torch.ops.nearest import nearest_points
@@ -390,12 +393,24 @@ def loss_models(model: bm.BodyModel, config: FitConfig):
     return bm.reduce_for_joints(model), None, None
 
 
+def step_observations(obs: Observations) -> Observations:
+    """``obs`` as every step of a fit reads it: the mask crops as a bit
+    mask (:func:`~bodyfitting_torch.losses.silhouette.mask_crops_bits`),
+    made once a fit.  ``Observations`` keep f32 crops, as the JAX
+    package's do."""
+    if obs.mask_crops is None:
+        return obs
+    return dataclasses.replace(obs,
+                               mask_crops=mask_crops_bits(obs.mask_crops))
+
+
 def make_step_fn(model, config: FitConfig, obs: Observations,
                  pose_prior_fn, opt: Adam):
     """One Adam step, shared by every entry point: ``step_fn(step)``
     updates ``opt.params`` in place and returns the per-frame loss
     ``[B]`` before the update (detached)."""
     loss_model, joints_model, mask_rows = loss_models(model, config)
+    obs = step_observations(obs)
     leaves = opt.params
 
     def step_fn(step: int) -> torch.Tensor:

@@ -29,6 +29,7 @@ from bodyfitting_torch.ops.camera import perspective_projection
 from bodyfitting_torch.ops.kernels import (
     bilinear_cov_grads,
     contour_match_full,
+    pack_bits,
     rows_scatter_add,
 )
 
@@ -226,6 +227,22 @@ def compute_mask_crops(
     return crops, origins, (Hc, Wc)
 
 
+def mask_crops_bits(crops: torch.Tensor) -> torch.Tensor:
+    """The 0/1 mask crops ``[..., Hc, Wc]`` as a bit mask ``[..., Hc,
+    ceil(Wc / 32)]`` (:func:`~bodyfitting_torch.ops.kernels.bilinear.
+    pack_bits`), the type the sampler reads on the main path: 1/32 of the
+    f32 bytes, and a mask bit converts to float exactly, so the loss
+    keeps its bits.  The zero columns that pad ``Wc`` to a multiple of 32
+    sample as the zeros outside the crop do (the loss samples crops
+    without coverage).  Made once a fit
+    (``fitting/smplify.py:step_observations``); raises ValueError if a
+    value is neither 0 nor 1."""
+    if not bool(((crops == 0) | (crops == 1)).all()):
+        raise ValueError("mask crops must hold only 0 and 1 to be sampled "
+                         "as a bit mask")
+    return pack_bits(crops)
+
+
 # ---------------------------------------------------------------------------
 # Differentiable pieces
 # ---------------------------------------------------------------------------
@@ -401,7 +418,7 @@ def silhouette_loss(
     with torch.no_grad():
         mx = matched[..., 0].to(torch.int32).clamp(0, W - 1)
         my = matched[..., 1].to(torch.int32).clamp(0, H - 1)
-        mxy = torch.stack([mx, my], dim=-1).to(look_img.dtype)
+        mxy = torch.stack([mx, my], dim=-1).to(proj.dtype)
         if use_crops:
             mxy = mxy - origin[:, None, :]
         # bilinear at integer pixels is the pixel's value exactly

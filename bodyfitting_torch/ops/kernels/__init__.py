@@ -8,6 +8,8 @@ them together.
 from bodyfitting_torch.ops.kernels.bilinear import (
     bilinear_cov_grads,
     bilinear_cov_grads_plain,
+    pack_bits,
+    unpack_bits,
 )
 from bodyfitting_torch.ops.kernels.contour_match import (
     contour_match_full,
@@ -51,7 +53,8 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "bilinear_cov_grads", "bilinear_cov_grads_plain",
+    "bilinear_cov_grads", "bilinear_cov_grads_plain", "pack_bits",
+    "unpack_bits",
     "contour_match_full", "contour_match_full_plain", "contour_min_idx",
     "rows_scatter_add", "rows_scatter_add_plain",
     "nearest_d2_idx", "nearest_d2_idx_plain",

@@ -30,14 +30,19 @@ Phases; the first failure ends the run with a non-zero exit code:
    the loss and its gradient with the kernels equal those with the plain
    PyTorch versions on the card; a small fit on the card equals the same
    fit on the CPU (plain versions).
-5. kernels: each kernel against its plain version on the inputs the main
-   path gave it at its final state (the contour match and the scatter
-   bitwise, also on edge cases: exact ties at the lane stride, one valid
-   candidate, M = 1, P = 1, NaN points, 70,000 candidates, all entries
-   on one output, out-of-range indices, rows of several chunks), with
-   the launch geometry and the input statistics the designs depend on,
-   and timed beside the plain version and a PyTorch call that computes
-   (nearly) the same function.
+5. kernels: each kernel bitwise against its plain version on the inputs
+   the main path gave it at its final state, and on edge cases: for the
+   sampler, its two calls (the stay-inside sample and the matched-pixel
+   lookup, on the bit-mask crops the fit's step reads) in its two image
+   types (bit mask, f32) and three flag sets, NaN and far points,
+   exact integers, border points, H or W of 1, point counts that leave a
+   block half full; for the contour match and the scatter, exact ties at
+   the lane stride, one valid candidate, M = 1, P = 1, NaN points,
+   70,000 candidates, all entries on one output, out-of-range indices,
+   rows of several chunks.  With the launch geometry and the input
+   statistics the designs depend on, and timed beside the plain version
+   and a PyTorch call that computes (nearly) the same function; the
+   sampler warm and cold (the L2 flushed before each launch).
 6. scan path: RenderPeople's SMPLify + SMPL+D fit of one scan with the
    synthetic SMPL model (6846 vertices, SPIN joints).  The scan is a
    seeded ground-truth body subdivided twice (219,008 faces) and pushed
@@ -391,9 +396,11 @@ def loss_and_grads(models, config, params, obs, prior, step):
     loss_model, joints_model, rows = models
     leaves = [p.detach().clone().requires_grad_(True)
               for p in params.tensors()]
+    # the observations as the fit's step reads them (bit-mask crops)
     loss, _ = smplify.fit_loss(
-        loss_model, config, smplify.FitParams.from_tensors(leaves), obs,
-        step, prior, joints_model=joints_model, mask_vertex_rows=rows)
+        loss_model, config, smplify.FitParams.from_tensors(leaves),
+        smplify.step_observations(obs), step, prior,
+        joints_model=joints_model, mask_vertex_rows=rows)
     grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -420,6 +427,29 @@ def cuda_ms(fn, reps=50, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps=200, flush_mib=128):
+    """``(median, mean)`` device milliseconds of ``fn()`` with the L2 cold:
+    before each call a ``flush_mib`` MiB write evicts the 50 MB L2, and
+    each call is timed by its own pair of CUDA events (a spin kernel holds
+    the stream while the host queues the calls)."""
+    import torch
+
+    flush = torch.empty(flush_mib * 2 ** 20 // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)          # ~100 ms of device clock cycles
+    for i, (start, end) in enumerate(events):
+        flush.fill_(float(i))
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in events]
+    return float(np.median(times)), float(np.mean(times))
 
 
 def host_ms(fn, reps=50):
@@ -528,6 +558,45 @@ def scatter_edge_cases():
     idx = rng.integers(0, 300, size=2500).astype(np.int32)
     idx[1000:1100] = 11                       # a run across a chunk edge
     cases["2500 entries, 3 chunks"] = (idx, g(2500), 300)
+    return cases
+
+
+def bilinear_edge_cases():
+    """Images and points that probe the sampler's design, as numpy
+    ``(img [BV, H, W] float32 0/1, xy [BV, N, 2] float32)`` by name: NaN,
+    infinite and +-1e9 coordinates, exact integers, points on each border
+    of the image and in (-1, 0) and (W - 1, W), H or W of 1, and point
+    counts that leave a block or a view half full (odd N, views smaller
+    than a warp, 1,025 points)."""
+    rng = np.random.default_rng(9)
+
+    def case(BV, H, W, N):
+        img = (rng.random((BV, H, W)) > 0.5).astype(np.float32)
+        xy = rng.uniform(-3, [W + 2, H + 2], size=(BV, N, 2))
+        return img, xy.astype(np.float32)
+
+    img, xy = case(3, 40, 300, 1001)
+    H, W = 40, 300
+    special = []
+    for x in (-1.0, -0.5, -1e-6, 0.0, 0.25, 1.0, 7.0, W - 1.0, W - 0.5,
+              W - 1e-4, float(W)):
+        for y in (-1.0, -0.25, 0.0, 3.0, H - 1.0, H - 0.5, float(H)):
+            special.append((x, y))
+    special += [(np.nan, 3.0), (3.0, np.nan), (np.nan, np.nan),
+                (np.inf, 3.0), (3.0, -np.inf), (1e9, 5.0), (-1e9, 5.0),
+                (5.0, 1e9), (5.0, -1e9), (-3e38, -3e38), (3e38, 2.0)]
+    xy[:, :len(special)] = np.array(special, np.float32)
+    xy[:, 200:260] = np.round(xy[:, 200:260])      # exact integers
+    cases = {"borders, integers, NaN and far points (N 1001)": (img, xy)}
+    cases["H 1"] = case(2, 1, 37, 333)
+    cases["W 1"] = case(2, 29, 1, 257)
+    img, xy = case(2, 1, 1, 9)
+    xy[:, :4] = [[0.0, 0.0], [-0.5, 0.0], [0.0, -0.5], [0.5, 0.5]]
+    cases["H 1, W 1"] = (img, xy)
+    cases["N 1, 5 views"] = case(5, 16, 24, 1)
+    cases["N 3, 7 views (vectors across views)"] = case(7, 16, 24, 3)
+    cases["1,025 points, one view"] = case(1, 64, 128, 1025)
+    cases["N 512 (aligned rows)"] = case(4, 48, 64, 512)
     return cases
 
 
@@ -796,7 +865,6 @@ def capture_kernel_inputs(state):
 
 def phase_kernels(state):
     import torch
-    import torch.nn.functional as F
 
     from bodyfitting_torch.ops import kernels as K
 
@@ -804,53 +872,16 @@ def phase_kernels(state):
     rows = []
 
     # --- bilinear_cov_grads: the stay-inside sample (with_grads) and the
-    # matched-pixel lookup (value only); the full-mask mode (with_cov) on
-    # the stay-inside positions
-    (look_args, look_kw), (stay_args, stay_kw) = calls["bilinear_cov_grads"]
-    assert not look_kw["with_grads"] and stay_kw["with_grads"]
-    img, xy = stay_args
-    BV, Hc, Wc = img.shape
-    N = xy.shape[1]
-    err = 0.0
-    for a, kw in ((stay_args, stay_kw), (look_args, look_kw),
-                  (stay_args, dict(with_grads=True, with_cov=True))):
-        got = K.bilinear_cov_grads(*a, **kw)
-        ref = K.bilinear_cov_grads_plain(*a, **kw)
-        torch.cuda.synchronize()
-        e = float((got - ref).abs().max())
-        log(f"bilinear_cov_grads {tuple(a[0].shape)} x {tuple(a[1].shape)} "
-            f"{kw}: max abs err {e:.3e} (tol 1e-6)")
-        assert e <= 1e-6
-        err = max(err, e)
-    ms = cuda_ms(lambda: K.bilinear_cov_grads(img, xy, **stay_kw))
-    plain = cuda_ms(lambda: K.bilinear_cov_grads_plain(img, xy, **stay_kw),
-                    reps=10)
-    scale = torch.tensor([2.0 / (Wc - 1), 2.0 / (Hc - 1)], device=xy.device)
-    grid = (xy * scale - 1.0)[:, None]                      # [BV, 1, N, 2]
-    lib = cuda_ms(lambda: F.grid_sample(img[:, None], grid, mode="bilinear",
-                                        padding_mode="zeros",
-                                        align_corners=True))
-    look_ms = cuda_ms(lambda: K.bilinear_cov_grads(*look_args, **look_kw))
-    host = host_ms(lambda: K.bilinear_cov_grads(img, xy, **stay_kw))
-    near, taps = touched_taps(img, xy)
-    # bytes: xy, the [BV, 6, N] output, and each distinct pixel that a
-    # near point's 4 taps touch, read once.  Operations per near point:
-    # 2 floors, 6 weight ops, 9 for the sample, 16 for the two
-    # derivatives and their step factors
-    b, by = bound_ms(4 * taps + nbytes(xy) + BV * 6 * N * 4, 33 * near)
-    log(f"bilinear_cov_grads stay-inside: {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"grid_sample (sample only) {lib:.4f} ms, bound {b:.4f} ms "
-        f"({by}); lookup call {look_ms:.4f} ms; {near} of {BV * N} points "
-        f"near the crop, {taps} distinct pixels touched of "
-        f"{img.numel()}; {host:.4f} ms per call on the host clock")
-    rows.append(dict(name="bilinear_cov_grads", max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    # matched-pixel lookup (value only) on the bit-mask crops the fit's
+    # step reads; the full-mask mode (with_cov) on the stay-inside positions
+    rows.append(check_bilinear(calls["bilinear_cov_grads"]))
 
     # --- contour_match_full (+ contour_min_idx on the same kernel)
     from bodyfitting_torch.ops.kernels import contour_match, rows_scatter
 
     ((cargs, _),) = calls["contour_match_full"]
     contour, proj, valid, inside = cargs
+    BV = contour.shape[0]
     cases = {"captured": cargs}
     cases.update({k: [torch.as_tensor(a[None], device=contour.device)
                       for a in arrays]
@@ -944,8 +975,145 @@ def phase_kernels(state):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
+            **{k: r[k] for k in ("shape", "shapes") if k in r},
         ))
     return table
+
+
+BILINEAR_MODES = (dict(with_grads=True, with_cov=False),    # stay inside
+                  dict(with_grads=False, with_cov=False),   # lookup
+                  dict(with_grads=True, with_cov=True))     # full masks
+
+
+def bilinear_bound(img, xy):
+    """``(bound ms, bound_by, bytes at a bit a pixel, near points,
+    distinct taps)`` of one call: the bound counts the f32 contract's
+    bytes (xy, the [BV, 6, N] output, 4 B per distinct in-image pixel a
+    near point's taps touch) or 33 operations a near point (2 floors, 6
+    weight ops, 9 for the sample, 16 for the two derivatives and their
+    step factors); the same bytes with the pixels at a bit each are the
+    bit-mask design's own count."""
+    BV, N = xy.shape[:2]
+    near, taps = touched_taps(img, xy)
+    rest = nbytes(xy) + BV * 6 * N * 4
+    b, by = bound_ms(4 * taps + rest, 33 * near)
+    return b, by, -(-taps // 8) + rest, near, taps
+
+
+def bilinear_images(img):
+    """A 0/1 image ``[BV, H, W]`` in the sampler's two types: the bit mask
+    (int32 words) and f32, each of width ``32 * ceil(W / 32)`` when
+    ``img`` is a bit mask, else of width ``W`` (the bit mask's padding
+    columns then read as zero pixels)."""
+    import torch
+
+    from bodyfitting_torch.ops.kernels import bilinear
+
+    if img.dtype == torch.int32:
+        return {"bits": img, "f32": bilinear.unpack_bits(img).float()}
+    return {"bits": bilinear.pack_bits(img), "f32": img.float()}
+
+
+def check_bilinear(calls):
+    """The sampler at the main path's two calls: bitwise its plain
+    version in its two image types and all three flag sets (the bit mask
+    without coverage: it refuses with_cov), at the captured inputs and on
+    :func:`bilinear_edge_cases`, the types bitwise each other; its
+    geometry; warm and cold times beside the plain version,
+    ``grid_sample`` and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.kernels import bilinear
+
+    (look_args, look_kw), (stay_args, stay_kw) = calls
+    assert not look_kw["with_grads"] and stay_kw["with_grads"]
+    img, xy = stay_args
+    assert (img.dtype == torch.int32
+            and look_args[0].data_ptr() == img.data_ptr()), \
+        "the fit's step should sample its one bit-mask copy of the crops"
+    dev = xy.device
+    cases = {"stay-inside": (img, stay_args[1]),
+             "lookup": (img, look_args[1])}
+    for what, (im, pts) in bilinear_edge_cases().items():
+        cases[what] = (torch.as_tensor(im, device=dev),
+                       torch.as_tensor(pts, device=dev))
+    err = 0.0      # the largest |kernel - plain| at the captured calls
+    for what, (im, pts) in cases.items():
+        same = []
+        for kw in BILINEAR_MODES:
+            plain = {}
+            for kind, image in bilinear_images(im).items():
+                if kind == "bits" and kw["with_cov"]:
+                    try:
+                        K.bilinear_cov_grads(image, pts, **kw)
+                    except ValueError:
+                        continue
+                    raise AssertionError("a bit mask sampled with_cov")
+                got = K.bilinear_cov_grads(image, pts, **kw)
+                plain[kind] = K.bilinear_cov_grads_plain(image, pts, **kw)
+                torch.cuda.synchronize()
+                same.append(torch.equal(got, plain[kind]))
+                if what in ("stay-inside", "lookup") and kind == "bits":
+                    err = max(err, float(
+                        (got - plain[kind]).abs().max()))
+            if "bits" in plain:
+                same.append(torch.equal(plain["bits"], plain["f32"]))
+        log(f"bilinear_cov_grads {what} (BV {im.shape[0]}, "
+            f"{'x'.join(map(str, im.shape[1:]))} {im.dtype}, N "
+            f"{pts.shape[1]}): bit mask and f32 x "
+            f"{len(BILINEAR_MODES)} flag sets bitwise equal to plain, and "
+            f"the types to each other: {all(same)} (tol: exact)")
+        assert all(same), f"bilinear_cov_grads differs ({what})"
+
+    shapes = []
+    imgs = bilinear_images(img)
+    BV, Hc, Wc = imgs["f32"].shape
+    lib_img = imgs["f32"][:, None]
+    for what, (args, kw) in (("stay-inside", (stay_args, stay_kw)),
+                             ("lookup", (look_args, look_kw))):
+        pts = args[1]
+        N = pts.shape[1]
+        geo = bilinear.kernel_geometry(BV, N)
+        assert geo == bilinear.launch_geometry(BV, N), \
+            f"bilinear geometry {geo} is not launch_geometry's"
+        t = {}
+        for kind, im in imgs.items():
+            t[f"{kind}_ms"] = cuda_ms(
+                lambda: K.bilinear_cov_grads(im, pts, **kw))
+            t[f"{kind}_cold_ms"], t[f"{kind}_cold_mean_ms"] = cold_ms(
+                lambda: K.bilinear_cov_grads(im, pts, **kw))
+        plain = cuda_ms(lambda: K.bilinear_cov_grads_plain(img, pts, **kw),
+                        reps=10)
+        scale = torch.tensor([2.0 / (Wc - 1), 2.0 / (Hc - 1)], device=dev)
+        grid = (pts * scale - 1.0)[:, None]                # [BV, 1, N, 2]
+        lib = cuda_ms(lambda: F.grid_sample(
+            lib_img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        host = host_ms(lambda: K.bilinear_cov_grads(img, pts, **kw))
+        b, by, bit_bytes, near, taps = bilinear_bound(imgs["f32"], pts)
+        log(f"bilinear_cov_grads {what} (BV {BV}, N {N}, crops {Hc}x{Wc}) "
+            f"launch {geo}: " + "; ".join(
+                f"{kind} {t[kind + '_ms']:.5f} ms warm, "
+                f"{t[kind + '_cold_ms']:.5f} cold (median of 200, mean "
+                f"{t[kind + '_cold_mean_ms']:.5f})" for kind in imgs)
+            + f"; plain {plain:.4f} ms, grid_sample (sample only, f32) "
+            f"{lib:.5f} ms, bound {b:.5f} ms ({by}; the bit mask's own "
+            f"bytes {bit_bytes}, {bit_bytes / HBM_BYTES_PER_S * 1e3:.5f} "
+            f"ms); "
+            f"{near} of {BV * N} points near the crop, {taps} distinct "
+            f"pixels touched of {BV * Hc * Wc}; {host:.4f} ms per call on "
+            f"the host clock")
+        shapes.append(dict(what=what, BV=BV, N=N, ms=t["bits_ms"],
+                           cold_ms=t["bits_cold_ms"], f32_ms=t["f32_ms"],
+                           f32_cold_ms=t["f32_cold_ms"], plain_ms=plain,
+                           library_ms=lib, bound_ms=b, bound_by=by))
+    head = shapes[0]
+    return dict(name="bilinear_cov_grads", max_abs_err=err, ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                shape=f"stay-inside BV {BV} N {head['N']}", shapes=shapes)
 
 
 # ---------------------------------------------------------------------------

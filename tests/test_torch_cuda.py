@@ -15,7 +15,10 @@ import torch
 
 from bodyfitting_torch.ops import kernels as K
 from bodyfitting_torch.ops.kernels import skinning
-from chip_smoke import match_edge_cases, scatter_edge_cases
+from chip_smoke import (
+    BILINEAR_MODES, bilinear_edge_cases, bilinear_images, match_edge_cases,
+    scatter_edge_cases,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -48,6 +51,73 @@ def test_bilinear_kernel_matches_plain(dev, with_grads, with_cov):
     torch.cuda.synchronize()
     assert K.bilinear_cov_grads.launches == before + 1
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("with_grads,with_cov",
+                         [(True, False), (False, False), (True, True)])
+def test_bilinear_bit_mask_kernel_matches_plain(dev, with_grads, with_cov):
+    """The bit-mask kernel (what the fits sample) bitwise its plain
+    version and the f32 kernel on one 0/1 image; with coverage it is
+    refused before any launch."""
+    rng = np.random.default_rng(3)
+    H, W, N = 368, 384, 2619
+    img = (rng.random((4, H, W)) > 0.5).astype(np.float32)
+    xy = rng.uniform(-3, [W + 2, H + 2], size=(4, N, 2)).astype(np.float32)
+    xy[:, :20] = np.round(xy[:, :20])
+    xy[:, 20] = [np.nan, 3.0]
+    img, xy = _t(img, dev), _t(xy, dev)
+    bits = K.pack_bits(img)
+    before = K.bilinear_cov_grads.launches
+    if with_cov:
+        with pytest.raises(ValueError, match="without coverage"):
+            K.bilinear_cov_grads(bits, xy, with_grads, with_cov)
+        assert K.bilinear_cov_grads.launches == before
+        return
+    f32 = K.bilinear_cov_grads(img, xy, with_grads, with_cov)
+    got = K.bilinear_cov_grads(bits, xy, with_grads, with_cov)
+    ref = K.bilinear_cov_grads_plain(bits, xy, with_grads, with_cov)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, f32)
+    assert K.bilinear_cov_grads.launches == before + 2
+
+
+@pytest.mark.parametrize("case", list(bilinear_edge_cases()))
+def test_bilinear_kernel_edge_cases(dev, case):
+    """NaN, infinite and far points, exact integers, points on and just
+    inside each border, H or W of 1, views smaller than a warp, point
+    counts that leave a block half full: both image types and all three
+    flag sets (the bit mask without coverage) bitwise the plain
+    version."""
+    img, xy = (_t(a, dev) for a in bilinear_edge_cases()[case])
+    for kind, im in bilinear_images(img).items():
+        for kw in BILINEAR_MODES:
+            if kind == "bits" and kw["with_cov"]:
+                continue
+            got = K.bilinear_cov_grads(im, xy, **kw)
+            ref = K.bilinear_cov_grads_plain(im, xy, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (kind, kw)
+
+
+def test_bilinear_launch_geometry(dev):
+    """The geometry the built kernel reports is the one
+    ``launch_geometry`` states, at the main path's two calls and at the
+    edge cases' sizes; the wrapper refuses misaligned xy and other image
+    types."""
+    from bodyfitting_torch.ops.kernels import bilinear
+
+    for BV, N in ((64, 2619), (64, 512), (1, 1), (7, 3), (1, 1025)):
+        assert bilinear.kernel_geometry(BV, N) == \
+            bilinear.launch_geometry(BV, N)
+    img = torch.zeros((1, 8, 8), device=dev)
+    xy = torch.zeros(37, device=dev)[1:].view(1, 18, 2)   # 4 bytes off
+    with pytest.raises(ValueError, match="boundary"):
+        K.bilinear_cov_grads(img, xy)
+    with pytest.raises(ValueError, match="float32 or int32"):
+        K.bilinear_cov_grads(img.double(), xy.double())
+    with pytest.raises(ValueError, match="float32 or int32"):
+        K.bilinear_cov_grads(img.to(torch.uint8),
+                             torch.zeros((1, 18, 2), device=dev))
 
 
 def test_contour_match_kernel_matches_plain(dev):

@@ -105,7 +105,8 @@ def test_bilinear_matches_xla_hinge_form(rng):
 
 
 def test_bilinear_crop_value_matches_xla_crop_branch(rng):
-    """Crop mode against the XLA crop branch of the stay-inside term."""
+    """Crop mode against the XLA crop branch of the stay-inside term, on
+    the f32 crop and on its bit mask (what the fits sample)."""
     Hc, Wc, H = 24, 40, 64
     crop = (rng.random((Hc, Wc)) > 0.5).astype(np.float32)
     origin = np.array([9.0, 13.0], np.float32)
@@ -118,11 +119,12 @@ def test_bilinear_crop_value_matches_xla_crop_branch(rng):
             float(H - 1), (H, H))
     finally:
         jsil.STAY_INSIDE = old
-    got = K.bilinear_cov_grads(torch.from_numpy(crop[None]),
-                               torch.from_numpy((xy - origin)[None]),
-                               with_grads=False, with_cov=False)
-    np.testing.assert_allclose(got[0, 0].numpy(), np.asarray(s_ref),
-                               atol=1e-5)
+    f32 = torch.from_numpy(crop[None])
+    for img in (f32, K.pack_bits(f32)):
+        got = K.bilinear_cov_grads(img, torch.from_numpy((xy - origin)[None]),
+                                   with_grads=False, with_cov=False)
+        np.testing.assert_allclose(got[0, 0].numpy(), np.asarray(s_ref),
+                                   atol=1e-5)
 
 
 def _match_case(rng, P, M):

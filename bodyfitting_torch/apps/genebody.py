@@ -12,9 +12,9 @@ HMR on a stream of their own, and the fit copies a batch to the card on
 its stream just before it starts.
 
 Not ported, and refused with an error: ``--data_parallel`` (ROADMAP §1
-item 13) and ``--native_openpose`` (item 11).  JPEG images are not
-decoded (the card's machine has no image library): a view whose OpenPose
-JSON is cached needs none, except the HMR keyframe and ``--debug``.
+item 6) and ``--native_openpose`` (item 4).  Images are PNG or JPEG,
+decoded by the port's own readers (``io/png.py``, ``io/jpeg.py``): the
+card's machine has no image library.
 
 Run:  python -m bodyfitting_torch.apps.genebody --target_dir ... --subject ...
 """
@@ -217,11 +217,11 @@ class Runner:
         if args.data_parallel:
             raise NotImplementedError(
                 "--data_parallel (frame batches sharded over several "
-                "devices) is not ported yet: ROADMAP §1 item 13")
+                "devices) is not ported yet: ROADMAP §1 item 6")
         if args.native_openpose:
             raise NotImplementedError(
                 "--native_openpose (the in-repo detector) is not ported "
-                "yet: ROADMAP §1 item 11; run the openpose binary or "
+                "yet: ROADMAP §1 item 4; run the openpose binary or "
                 "provide the keypoint JSONs")
         self.args = args
         self.device = default_device(device)

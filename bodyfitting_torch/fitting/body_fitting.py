@@ -335,10 +335,10 @@ def smplx_init_from_smpl(smplx_model, smpl_result: dict,
 
 def fit_frames_batched_sharded(*args, **kwargs):
     """Frame data parallelism over several devices is not ported yet
-    (ROADMAP §1 item 13): raises."""
+    (ROADMAP §1 item 6): raises."""
     raise NotImplementedError(
         "multi-device frame batches are not ported yet (ROADMAP §1 item "
-        "13); fit on one device with fit_frames_batched")
+        "6); fit on one device with fit_frames_batched")
 
 
 def fit_sequence_batched(model, config: smplify.FitConfig,
@@ -347,7 +347,7 @@ def fit_sequence_batched(model, config: smplify.FitConfig,
                          pose_prior_fn, tcfg=None):
     """The temporally coupled fit (:func:`sequence.fit_sequence`) of a
     list of per-frame observations on one device (the JAX function's
-    device ``mesh`` is not ported: ROADMAP §1 item 13).  Returns
+    device ``mesh`` is not ported: ROADMAP §1 item 6).  Returns
     ``(results, losses [num_iters])``: the loss curve is the sequence's."""
     from bodyfitting_torch.fitting import sequence as seq
 

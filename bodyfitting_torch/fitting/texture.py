@@ -13,13 +13,15 @@ from the texture and its scatter-add gradient.
 Entry points take numpy arrays (or tensors) and ``device=None``, which
 :func:`bodyfitting_torch.default_device` resolves: the card, or a raise
 unless the caller passes ``device="cpu"``.  Float inputs keep their
-dtype; the kernels take float32.  ``render_compare`` (PNG and mp4 output)
-waits for the app.
+dtype; the kernels take float32.  ``render_compare`` writes the
+fitted-vs-scan ring views as PNG stills (no mp4: the card's machine has no
+video encoder).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -27,6 +29,7 @@ import torch
 
 from bodyfitting_torch.device import default_device
 from bodyfitting_torch.fitting.smplify import Adam
+from bodyfitting_torch.io.png import write_png
 from bodyfitting_torch.ops import rasterize as rz
 from bodyfitting_torch.ops.kernels import rasterize_attrs
 
@@ -426,3 +429,37 @@ def inpaint_unseen(texture, unseen_mask, iterations: int = 200,
         ) / 4.0
         img = torch.where(m, blur, img)
     return img.cpu().numpy()
+
+
+def render_compare(smpl_mesh, scan_mesh, out_dir: str, viewnum: int = 36,
+                   imgsize: int = 512, write_video: bool = True,
+                   device=None):
+    """Side-by-side ring-view renders of the fitted mesh against the scan
+    (the reference's ``render_compare``): for each of ``viewnum`` ring
+    views a ``[scan | fitted]`` uint8 image, written as ``%04d.png``
+    under ``out_dir``.  Each mesh is a tuple ``(verts, faces, face_uvs,
+    texture)``; the renders are one ``rasterize_zbuf`` launch each.
+
+    ``write_video`` is accepted and ignored: the JAX function adds an mp4
+    only when imageio's ffmpeg is there and skips it silently otherwise,
+    and the card's machine has neither.  Returns the frames."""
+    device = default_device(device)
+    del write_video
+    os.makedirs(out_dir, exist_ok=True)
+    center, _, dist = scene_bounds(_numpy(scan_mesh[0]))
+    poses = ring_poses(center, viewnum, dist)
+    K = _t(default_K(imgsize), device)
+    meshes = [tuple(_t(a, device) for a in m) for m in (scan_mesh, smpl_mesh)]
+    frames = []
+    with torch.no_grad():
+        for i, w2c in enumerate(poses):
+            w2c_t = _t(w2c, device)
+            imgs = []
+            for verts, faces, face_uvs, tex in meshes:
+                img, _ = render_textured(verts, faces, face_uvs, tex, w2c_t,
+                                         K, imgsize)
+                imgs.append((torch.clamp(img, 0, 1) * 255).to(torch.uint8))
+            frame = torch.cat(imgs, dim=1).cpu().numpy()
+            write_png(os.path.join(out_dir, f"{i:04d}.png"), frame)
+            frames.append(frame)
+    return frames

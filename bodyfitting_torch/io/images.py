@@ -5,7 +5,7 @@ square bbox and the intrinsics adjustment are the same decisions;
 ``crop_and_resize`` reproduces ``cv2.resize(..., INTER_LINEAR)``'s
 arithmetic on uint8 (11-bit fixed-point weights, OpenCV's rounding), and
 :func:`resize_cubic` ``INTER_CUBIC``'s within one level (see each).
-Images decode through ``io/png.py``; JPEG decoding is not ported.
+Images decode through ``io/png.py`` and ``io/jpeg.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,12 @@ import os
 
 import numpy as np
 
+from bodyfitting_torch.io.jpeg import (
+    SIGNATURE as JPEG_SIGNATURE,
+    apply_orientation,
+    decode_jpeg,
+    exif_orientation,
+)
 from bodyfitting_torch.io.png import decode_png
 
 IMREAD_UNCHANGED = -1      # cv2's flag values, for the same call sites
@@ -27,21 +33,23 @@ def imread_checked(path: str, flags=None) -> np.ndarray:
 
     ``IMREAD_COLOR`` (the default) gives ``[H, W, 3]`` in BGR order;
     ``IMREAD_UNCHANGED`` gives grey as ``[H, W]``, grey + alpha as BGRA,
-    RGB as BGR and RGBA as BGRA, as OpenCV does.  PNG only: a JPEG raises
-    ``NotImplementedError`` (the port has no JPEG decoder yet)."""
+    RGB as BGR and RGBA as BGRA, as OpenCV does.  PNG or JPEG; a JPEG's
+    EXIF orientation is applied under ``IMREAD_COLOR`` and not under
+    ``IMREAD_UNCHANGED``, as OpenCV does.  An image the decoders refuse
+    raises ``FileNotFoundError`` too (where ``cv2.imread`` returns
+    ``None``)."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError as e:
         raise FileNotFoundError(f"cannot read image: {path}") from e
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(
-            f"{path}: JPEG decoding is not ported (no OpenCV, imageio or "
-            f"PIL on the card's machine); convert the image to PNG")
+    jpeg = data[:3] == JPEG_SIGNATURE
     try:
-        img = decode_png(data, path)
+        img = decode_jpeg(data, path) if jpeg else decode_png(data, path)
     except ValueError as e:
         raise FileNotFoundError(f"cannot read image: {path} ({e})") from e
+    if jpeg and flags != IMREAD_UNCHANGED:
+        img = apply_orientation(img, exif_orientation(data))
     if img.ndim == 3 and img.shape[2] == 2:          # grey + alpha -> BGRA
         img = np.concatenate([img[..., :1].repeat(3, 2), img[..., 1:]], 2)
     if img.ndim == 3:

@@ -3,8 +3,9 @@
 Each ``.cu`` file is a plain-C shared library (no PyTorch headers, so
 ``nvcc`` takes seconds), built for ``sm_90a`` at first use into
 ``ops/_build/`` (git-ignored).  Each ``.cpp`` file is host code (the PNG
-unfilter), built the same way with the system C++ compiler, the one
-``nvcc`` uses for host code; it needs no CUDA toolkit.  The library name
+unfilter, the JPEG decoder, the OBJ parser), built the same way with the
+system C++ compiler, the one ``nvcc`` uses for host code; it needs no
+CUDA toolkit.  The library name
 carries a hash of its source and flags, so an edited source is rebuilt,
 never loaded stale.  All sources are compiled in parallel, one compiler
 process each.
@@ -37,7 +38,7 @@ CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 SOURCES = ("bilinear", "contour_match", "nearest", "raster", "rows_scatter",
            "skinning")
-HOST_SOURCES = ("png_unfilter",)
+HOST_SOURCES = ("png_unfilter", "jpeg_decode", "obj_parse")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -49,8 +50,8 @@ def _cxx() -> str:
         found = cand and shutil.which(cand)
         if found:
             return found
-    raise RuntimeError("no C++ compiler found: the PNG unfilter needs one "
-                       "(set CXX or put c++ on PATH)")
+    raise RuntimeError("no C++ compiler found: the PNG, JPEG and OBJ readers "
+                       "need one (set CXX or put c++ on PATH)")
 
 
 def _nvcc() -> str:

@@ -9,8 +9,9 @@ interpolation and bilinear UV texture sampling.  Pixel centres are at
 Only textures (and attributes) are differentiated: the z-buffer's face
 assignment is a constant, the barycentric post-pass is plain PyTorch
 (differentiable in the corners, as the JAX one), and the texture
-gradient of :func:`bilinear_sample_uv` is autograd's scatter-add of its
-gather.  ``soft_silhouette`` (:279, no caller on any path) is not ported.
+gradient of :func:`bilinear_sample_uv` is the scatter-add of its gather,
+summed in a fixed order on the card too (:class:`_Gather`).
+``soft_silhouette`` (:279, no caller on any path) is not ported.
 """
 
 from __future__ import annotations
@@ -130,11 +131,39 @@ def interpolate_uvs(raster: RasterOut, face_uvs: torch.Tensor) -> torch.Tensor:
     return uvs.reshape(H, W, 2)
 
 
+class _Gather(torch.autograd.Function):
+    """``table[idx]`` (rows), whose backward sums the cotangent rows that
+    share an index in ascending position, as autograd's ``index_put_``
+    with ``accumulate`` does on the CPU: a stable sort of the indices,
+    then one sum over each run.  On a CUDA device ``index_put_``'s float
+    atomics would sum colliding rows in launch order, and the texture
+    fit's Adam turns a last-bit difference at a texel whose gradient
+    cancels into a whole step; in this order a rerun of a fit gives the
+    same texture."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows,) + grad.shape[1:])
+        if idx.numel() == 0:
+            return out, None
+        rows, order = torch.sort(idx, stable=True)
+        rows, counts = torch.unique_consecutive(rows, return_counts=True)
+        out[rows] = torch.segment_reduce(grad[order], "sum", lengths=counts)
+        return out, None
+
+
 def bilinear_sample_uv(texture: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor:
     """Bilinear texture lookup at UVs ``[..., 2]`` (OBJ convention: v up).
 
     A gather from the row-flattened texture; differentiable w.r.t. the
-    texture (autograd's scatter-add) and the UVs.
+    texture (:class:`_Gather`'s scatter-add) and the UVs.
     """
     Th, Tw = texture.shape[:2]
     tex_flat = texture.reshape(Th * Tw, -1)
@@ -149,7 +178,7 @@ def bilinear_sample_uv(texture: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor
     wy = torch.clamp(y - y0, 0.0, 1.0)[:, None]
 
     def tap(xi, yi):
-        return tex_flat[yi.long() * Tw + xi.long()]
+        return _Gather.apply(tex_flat, yi.long() * Tw + xi.long())
 
     val = (tap(x0, y0) * (1 - wx) * (1 - wy)
            + tap(x1, y0) * wx * (1 - wy)

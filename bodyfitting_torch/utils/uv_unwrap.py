@@ -71,13 +71,14 @@ def make_uv_template(
     margin_frac: float = 0.125,
 ) -> tuple[np.ndarray, np.ndarray]:
     """A per-face atlas for a mesh, the stand-in for the reference's
-    licensed ``smpl_uv.obj``: ``(uvs, face_uvs)``.
-
-    Writing it as an OBJ template (``path``) waits for the port's OBJ
-    writer; a path raises ``NotImplementedError``.
+    licensed ``smpl_uv.obj`` (whose ``vt`` / ``f`` lines the texture stage
+    reads): ``(uvs, face_uvs)``, also written as an OBJ template (no
+    texture) when ``path`` is given.
     """
+    faces = np.asarray(faces)
+    uvs, face_uvs = per_face_atlas(len(faces), margin_frac)
     if path is not None:
-        raise NotImplementedError(
-            "make_uv_template: writing the OBJ template is not ported yet")
-    del verts
-    return per_face_atlas(len(np.asarray(faces)), margin_frac)
+        from bodyfitting_torch.io.obj import save_obj_uv
+
+        save_obj_uv(path, np.asarray(verts), faces, uvs, face_uvs)
+    return uvs, face_uvs

@@ -99,6 +99,36 @@ Phases; the first failure ends the run with a non-zero exit code:
    parameters are hashed (sha1): the kernels equal the same plain
    versions in every design, so the hash holds across designs.
 
+10. the RenderPeople app, ``python -m bodyfitting_torch.apps.renderpeople``
+   run through ``main(argv)``: first the committed JPEG fixtures
+   (``tests/data/jpeg/``) decoded by the port, each to the sha1 of
+   OpenCV's decode recorded beside it.  Then a synthetic RenderPeople
+   directory in a temporary directory: the scan phase's 219,008-face scan
+   as an OBJ with cylindrical UVs (``v``, ``vt``, ``f v/vt``), an MTL
+   whose ``map_Kd`` names the 2048^2 JPEG fixture, the scan phase's
+   synthetic SMPL written as a model file (``--model_path``), OpenPose
+   BODY_25 JSONs of the ground truth's joints in the app's own ring views,
+   the seeded HMR checkpoint.  (a) ``--tasks smplify smpld texfit output
+   --auto_uv --inpaint --disp_map --debug --timing``, 600 + 600 fit
+   iterations, 200 texture iterations; (b) ``--tasks texfit output`` on
+   (a)'s output directory (its cached views and fit); (c) ``--use_mask
+   --tasks smplify``, 120 iterations.  The counters are zeroed around each
+   run and held to the counts the code gives: (a) 14 ``nearest_d2_idx``
+   (the 96^3 volume), 81 ``rasterize_zbuf`` (8 views, the 1024^2 atlas,
+   2 x 36 ``render_compare`` views), 256 ``rasterize_attrs``; (b) 0 / 73 /
+   256; (c) 14 / 8 / 0 and 158 / 79 / 79 of the silhouette kernels.
+   Checks: every file the JAX app writes exists and holds finite values;
+   SMPL+D lies within 10 mm of the scan on average; the fitted joints
+   reproject within 20 px of the ground truth's keypoints on average; the
+   fitted texture's ring-view L1 is below grey's; (b)'s ``smpl.png``
+   equals (a)'s byte for byte; (c)'s mask term is live after the gate.
+   The three silhouette kernels' arguments at (c)'s last step (f32 full
+   masks with coverage, the app's contour and vertex counts) are kept, and
+   each kernel is held bitwise against its plain version there and timed
+   beside it, the library call and the bound (the kernel table's
+   ``rp_app_c``).  Printed: the OBJ parse and JPEG decode times, each
+   run's stages (``--timing``), launches and parameter sha1.
+
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -312,10 +342,12 @@ def vertex_normals(verts, faces):
     return vn / np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-12)
 
 
-def make_scan_problem(model, n_views, imsize, subdivisions, seed):
+def make_scan_problem(model, n_views, imsize, subdivisions, seed,
+                      with_joints=False):
     """A seeded RenderPeople-style scan problem for a SMPL ``model`` (with
     the SPIN joint mapper): ``(c2ws, Ks, keypoints, scan_verts,
-    scan_faces)``.
+    scan_faces)``, and the ground truth's 25 BODY_25 joints after them
+    ``with_joints``.
 
     The scan is the posed ground-truth surface, midpoint-subdivided
     ``subdivisions`` times, pushed out along its normals by a smooth
@@ -356,7 +388,8 @@ def make_scan_problem(model, n_views, imsize, subdivisions, seed):
         uv = project(joints, c2w, K) + rng.normal(scale=1.0, size=(25, 2))
         kps.append(dict(pose=np.concatenate(
             [uv, np.ones((25, 1))], 1).astype(np.float32)))
-    return c2ws, Ks, kps, scan_verts.astype(np.float32), faces
+    out = (c2ws, Ks, kps, scan_verts.astype(np.float32), faces)
+    return out + (joints,) if with_joints else out
 
 
 # ---------------------------------------------------------------------------
@@ -864,10 +897,6 @@ def capture_kernel_inputs(state):
 
 
 def phase_kernels(state):
-    import torch
-
-    from bodyfitting_torch.ops import kernels as K
-
     calls = capture_kernel_inputs(state)
     rows = []
 
@@ -876,16 +905,42 @@ def phase_kernels(state):
     # step reads; the full-mask mode (with_cov) on the stay-inside positions
     rows.append(check_bilinear(calls["bilinear_cov_grads"]))
 
-    # --- contour_match_full (+ contour_min_idx on the same kernel)
-    from bodyfitting_torch.ops.kernels import contour_match, rows_scatter
-
     ((cargs, _),) = calls["contour_match_full"]
+    rows.append(check_contour(cargs, edge_cases=True))
+    ((sargs, _),) = calls["rows_scatter_add"]
+    rows.append(check_scatter(sargs, edge_cases=True))
+
+    table = []
+    for r in rows:
+        table.append(dict(
+            name=r["name"], route="cuda", source=SOURCES[r["name"]],
+            replaces=TPU_KERNELS[r["name"]],
+            launches=state["launches"][r["name"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            **{k: r[k] for k in ("shape", "shapes") if k in r},
+        ))
+    return table
+
+
+def check_contour(cargs, edge_cases):
+    """``contour_match_full`` (and ``contour_min_idx`` on the same kernel)
+    bitwise its plain version at the captured arguments ``cargs`` and,
+    with ``edge_cases``, on :func:`match_edge_cases`; its geometry and its
+    time beside the plain version, ``cdist`` + ``argmin`` and the bound."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.kernels import contour_match
+
     contour, proj, valid, inside = cargs
     BV = contour.shape[0]
     cases = {"captured": cargs}
-    cases.update({k: [torch.as_tensor(a[None], device=contour.device)
-                      for a in arrays]
-                  for k, arrays in match_edge_cases(card=True).items()})
+    if edge_cases:
+        cases.update({k: [torch.as_tensor(a[None], device=contour.device)
+                          for a in arrays]
+                      for k, arrays in match_edge_cases(card=True).items()})
     for what, args in cases.items():
         got = K.contour_match_full(*args)
         ref = K.contour_match_full_plain(*args)
@@ -917,14 +972,26 @@ def phase_kernels(state):
     log(f"contour_match_full: {ms:.4f} ms, plain {plain:.4f} ms, "
         f"cdist+argmin {lib:.4f} ms, bound {b:.4f} ms ({by}); "
         f"{host:.4f} ms per call on the host clock")
-    rows.append(dict(name="contour_match_full", max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+    return dict(name="contour_match_full", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                shape=f"BV {BV} P {P} M {M}")
 
-    # --- rows_scatter_add: the ICP backward's cotangent onto the matches
-    ((sargs, _),) = calls["rows_scatter_add"]
+
+def check_scatter(sargs, edge_cases):
+    """``rows_scatter_add`` at the captured arguments ``sargs`` and, with
+    ``edge_cases``, on :func:`scatter_edge_cases`: two launches bitwise
+    each other and the ascending-p plain version; its geometry and its
+    time beside the plain version, ``index_add_`` and the bound."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.kernels import rows_scatter
+
     idx, g, Mc = sargs
+    BV = idx.shape[0]
     cases = {"captured": sargs}
-    for k, (i, gg, m) in scatter_edge_cases().items():
+    for k, (i, gg, m) in (scatter_edge_cases() if edge_cases
+                          else {}).items():
         cases[k] = (torch.as_tensor(np.stack([i, i[::-1].copy()]),
                                     device=idx.device),
                     torch.as_tensor(np.stack([gg, gg[::-1].copy()]),
@@ -963,21 +1030,9 @@ def phase_kernels(state):
     log(f"rows_scatter_add: {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
         f"{lib:.4f} ms, bound {b:.4f} ms ({by}); {host:.4f} ms per call on "
         f"the host clock")
-    rows.append(dict(name="rows_scatter_add", max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
-
-    table = []
-    for r in rows:
-        table.append(dict(
-            name=r["name"], route="cuda", source=SOURCES[r["name"]],
-            replaces=TPU_KERNELS[r["name"]],
-            launches=state["launches"][r["name"]],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
-            **{k: r[k] for k in ("shape", "shapes") if k in r},
-        ))
-    return table
+    return dict(name="rows_scatter_add", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                shape=f"BV {BV} P {idx.shape[1]} M {Mc}")
 
 
 BILINEAR_MODES = (dict(with_grads=True, with_cov=False),    # stay inside
@@ -1114,6 +1169,65 @@ def check_bilinear(calls):
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"],
                 shape=f"stay-inside BV {BV} N {head['N']}", shapes=shapes)
+
+
+def check_bilinear_full(calls):
+    """The sampler at the two calls a full-mask fit step makes (the
+    RenderPeople app's ``--use_mask``): f32 masks ``[BV, H, W]``, the
+    stay-inside sample with coverage and derivatives, and the
+    matched-pixel lookup.  Each bitwise its plain version; warm and cold
+    times beside the plain version, ``grid_sample`` and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.kernels import bilinear
+
+    shapes = []
+    for what in ("stay-inside", "lookup"):
+        (img, pts), kw = calls[what]
+        assert img.dtype == torch.float32 and kw["with_cov"] == (
+            what == "stay-inside"), (what, img.dtype, kw)
+        got = K.bilinear_cov_grads(img, pts, **kw)
+        ref = K.bilinear_cov_grads_plain(img, pts, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        BV, H, W = img.shape
+        N = pts.shape[1]
+        log(f"bilinear_cov_grads rp app (c) {what} (BV {BV}, {H}x{W} f32 "
+            f"full masks, N {N}, {kw}): bitwise equal to plain: {same} "
+            f"(tol: exact)")
+        assert same, f"bilinear_cov_grads differs (rp app (c) {what})"
+        err = float((got - ref).abs().max())
+        geo = bilinear.kernel_geometry(BV, N)
+        ms = cuda_ms(lambda: K.bilinear_cov_grads(img, pts, **kw))
+        cold, cold_mean = cold_ms(lambda: K.bilinear_cov_grads(img, pts,
+                                                               **kw))
+        plain = cuda_ms(lambda: K.bilinear_cov_grads_plain(img, pts, **kw),
+                        reps=10)
+        scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)],
+                             device=pts.device)
+        grid = (pts * scale - 1.0)[:, None]                # [BV, 1, N, 2]
+        lib = cuda_ms(lambda: F.grid_sample(
+            img[:, None], grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        b, by, _, near, taps = bilinear_bound(img, pts)
+        log(f"bilinear_cov_grads rp app (c) {what} launch {geo}: {ms:.5f} "
+            f"ms warm, {cold:.5f} cold (median of 200, mean "
+            f"{cold_mean:.5f}); plain {plain:.4f} ms, grid_sample (sample "
+            f"only) {lib:.5f} ms, bound {b:.5f} ms ({by}); {near} of "
+            f"{BV * N} points near the image, {taps} distinct pixels "
+            f"touched of {BV * H * W}")
+        shapes.append(dict(what=what, BV=BV, N=N, H=H, W=W, max_abs_err=err,
+                           ms=ms, cold_ms=cold, plain_ms=plain,
+                           library_ms=lib, bound_ms=b, bound_by=by))
+    head = shapes[0]
+    return dict(name="bilinear_cov_grads",
+                max_abs_err=max(r["max_abs_err"] for r in shapes),
+                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+                shape=f"stay-inside with_cov BV {head['BV']} N {head['N']} "
+                f"{head['H']}x{head['W']} f32", shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -2007,18 +2121,20 @@ def fit_recorder(store):
         bf.fit_frames_batched = orig
 
 
-def run_app(argv, device):
-    """``bodyfitting_torch.apps.genebody.main(argv)`` with the launch counts
-    zeroed just before and read just after; returns (wall s, counts)."""
-    from bodyfitting_torch.apps import genebody as app
+def run_app(argv, device, app=None):
+    """``app.main(argv)`` (default ``bodyfitting_torch.apps.genebody``) with
+    the launch counts zeroed just before and read just after; returns
+    (wall s, counts, what ``main`` returned)."""
     from bodyfitting_torch.ops import kernels as K
 
+    if app is None:
+        from bodyfitting_torch.apps import genebody as app
     sync(device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    app.main(argv, device=device)
+    out = app.main(argv, device=device)
     sync(device)
-    return time.perf_counter() - t0, K.launch_counts()
+    return time.perf_counter() - t0, K.launch_counts(), out
 
 
 def read_app_outputs(out_dir, frames):
@@ -2252,7 +2368,7 @@ def phase_app(size=APP_PATH, device="cuda", smi=""):
             write_keypoint_jsons(out, subject["kps"], set(frames))
             argv = argv0 + ["--target_dir", target, "--output_dir", out] + extra
             with rec.active(), fit_recorder(fits):
-                wall, counts = run_app(argv, device)
+                wall, counts, _ = run_app(argv, device)
             n_iter = int(extra[extra.index("--num_iters") + 1])
             batches = -(-len(frames) // size["batch"])
             expect = dict(skin_forward=batches * (n_iter + 1),
@@ -2384,6 +2500,382 @@ def skin_rows(app):
     return table
 
 
+# ---------------------------------------------------------------------------
+# The RenderPeople app: python -m bodyfitting_torch.apps.renderpeople
+# ---------------------------------------------------------------------------
+
+# The app's shape: --smpl_type smpl --viewnum 8 --load_size 512 on the scan
+# phase's scan (the synthetic SMPL of 6,846 vertices, its posed surface
+# subdivided twice: 219,008 faces), textured with the committed 2048^2 JPEG;
+# (a) every task but openpose with --auto_uv --inpaint --disp_map --debug
+# and the seeded HMR checkpoint, 600 + 600 iterations and 200 texture
+# iterations; (b) texfit and output again on (a)'s caches; (c) --use_mask
+# smplify, 120 iterations.
+RP_APP_PATH = dict(num_verts=6890, viewnum=8, load_size=512, subdivisions=2,
+                   num_iters=600, tex_iters=200, mask_iters=120,
+                   # SMPL+D's mean distance to the scan (mm; phase 6: 2.8-3.9)
+                   # and the fitted joints' mean reprojection error (px of
+                   # the 512^2 views; phase 9's keypoint bound)
+                   max_mm=10.0, max_px=20.0)
+RP_SUBJECT = "rp_smoke"
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+
+
+def write_smpl_asset(path, model):
+    """``model`` as a SMPL asset that ``load_model`` reads back exactly
+    (an ``.npz`` of the ``.pkl``'s arrays, float32)."""
+    V, J = model.num_verts, len(model.parents)
+
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    parents = np.asarray(model.parents, np.int64)
+    np.savez(path, v_template=a(model.v_template),
+             shapedirs=a(model.shapedirs).T.reshape(V, 3, -1),
+             posedirs=a(model.posedirs).T.reshape(V, 3, -1),
+             J_regressor=a(model.J_regressor), weights=a(model.lbs_weights),
+             f=a(model.faces).astype(np.int64),
+             kintree_table=np.stack([parents, np.arange(J)]))
+
+
+def cylinder_uvs(verts):
+    """Per-vertex UVs of a cylindrical projection about the vertical axis
+    through the centre: u the angle, v the height."""
+    c = 0.5 * (verts.min(0) + verts.max(0))
+    u = 0.5 + np.arctan2(verts[:, 0] - c[0], verts[:, 2] - c[2]) / (2 * np.pi)
+    v = (verts[:, 1] - verts[:, 1].min()) / np.ptp(verts[:, 1])
+    return np.stack([u, v], 1).astype(np.float32)
+
+
+def write_rp_scans(root, model, size, seed=0):
+    """A RenderPeople directory with one scan: the scan phase's problem for
+    ``model`` written as ``scans/<subject>/<subject>.obj`` (``v``, ``vt``,
+    ``f v/vt``) with an MTL whose ``map_Kd`` names the committed 2048^2
+    JPEG, copied to ``tex/``.  Returns the scan as the app loads it, the
+    ground truth's joints, and the OBJ parse and JPEG decode times."""
+    import shutil
+
+    from bodyfitting_torch.io.images import imread_checked
+    from bodyfitting_torch.io.obj import load_obj, save_obj_uv
+
+    *_, sv, sf, joints = make_scan_problem(
+        model, size["viewnum"], size["load_size"], size["subdivisions"],
+        seed=seed, with_joints=True)
+    d = os.path.join(root, "scans", RP_SUBJECT)
+    os.makedirs(os.path.join(d, "tex"))
+    obj = os.path.join(d, RP_SUBJECT + ".obj")
+    t0 = time.perf_counter()
+    save_obj_uv(obj, sv, sf, cylinder_uvs(sv), sf)
+    with open(os.path.join(d, RP_SUBJECT + ".mtl"), "a") as f:
+        f.write(f"map_Kd tex/{RP_SUBJECT}_dif_2k.jpg\n")
+    jpg = os.path.join(d, "tex", f"{RP_SUBJECT}_dif_2k.jpg")
+    shutil.copy(os.path.join(JPEG_FIXTURES, "texture_2048.jpg"), jpg)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_obj(obj)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imread_checked(jpg)
+    decode_s = time.perf_counter() - t0
+    scan = load_obj(obj, load_texture=True)
+    assert scan.texture.shape == (2048, 2048, 3)
+    return dict(scan=scan, joints=joints, obj=obj, write_s=write_s,
+                parse_s=parse_s, decode_s=decode_s,
+                obj_mib=os.path.getsize(obj) / 2 ** 20)
+
+
+def check_jpeg_fixtures():
+    """Each committed fixture decodes to the sha1 of OpenCV's decode,
+    recorded beside it; returns the decode times (s)."""
+    from bodyfitting_torch.io.images import imread_checked
+
+    record = json.load(open(os.path.join(JPEG_FIXTURES, "fixtures.json")))
+    times = {}
+    for name, rec in sorted(record.items()):
+        t0 = time.perf_counter()
+        img = imread_checked(os.path.join(JPEG_FIXTURES, name))
+        times[name] = time.perf_counter() - t0
+        digest = hashlib.sha1(img.tobytes()).hexdigest()
+        log(f"jpeg fixture {name}: {img.shape}, decode sha1 {digest} "
+            f"(OpenCV's {rec['sha1']}) in {times[name] * 1e3:.1f} ms")
+        assert list(img.shape) == rec["shape"] and digest == rec["sha1"], \
+            (name, digest, rec)
+    return times
+
+
+def write_rp_keypoints(out_dir, joints, w2cs, K, seed=0):
+    """OpenPose BODY_25 JSONs of the ground truth's joints in each of the
+    app's views (1 px of seeded noise), where the app's cache check finds
+    them; returns the noiseless projections ``[views, 25, 2]``."""
+    rng = np.random.default_rng(seed)
+    d = os.path.join(out_dir, RP_SUBJECT, "openpose")
+    os.makedirs(d, exist_ok=True)
+    clean = []
+    for v, w2c in enumerate(w2cs):
+        uv = project(joints, np.linalg.inv(w2c), K)
+        clean.append(uv)
+        kp = np.concatenate([uv + rng.normal(scale=1.0, size=uv.shape),
+                             np.ones((len(uv), 1))], 1)
+        with open(os.path.join(d, "%02d_keypoints.json" % v), "w") as fh:
+            json.dump({"people": [{"pose_keypoints_2d":
+                                   kp.reshape(-1).tolist()}]}, fh)
+    return np.stack(clean)
+
+
+def read_rp_outputs(out_dir, size, tasks, debug):
+    """Every file the JAX app writes for ``tasks`` (and ``--debug``),
+    checked to exist and hold finite values; returns the fit's parameters
+    and loss trace."""
+    from bodyfitting_torch.io.obj import load_obj
+    from bodyfitting_torch.io.params import PARAM_KEYS
+    from bodyfitting_torch.io.png import read_png
+
+    sub = os.path.join(out_dir, RP_SUBJECT)
+    n, s = size["viewnum"], size["load_size"]
+    pngs = {os.path.join(sub, "images", "%02d.png" % i): (s, s, 3)
+            for i in range(n)}
+    pngs.update({os.path.join(sub, "masks", "%02d.png" % i): (s, s)
+                 for i in range(n)})
+    objs = []
+    if "smplify" in tasks:
+        objs += [os.path.join(sub, "smplify", "smpl.obj")]
+        if debug:
+            pngs[os.path.join(sub, "smplify", "smpl_fitting", "00.png")] = (
+                s, s, 3)
+        if "smpld" in tasks:
+            objs += [os.path.join(sub, "smplify", "smpl+d.obj")]
+    if "texfit" in tasks:
+        t = os.path.join(sub, "texfit")
+        objs += [os.path.join(t, "smpl+d_textured.obj")]
+        pngs.update({os.path.join(t, "smpl.png"): (1024, 1024, 3),
+                     os.path.join(t, "smpl+d_textured.png"): (1024, 1024, 3),
+                     os.path.join(t, "smpl_dis.png"): (1024, 1024, 3)})
+        if debug:
+            pngs.update({os.path.join(t, "render", "%04d.png" % i):
+                         (s, 2 * s, 3) for i in range(36)})
+    if "output" in tasks:
+        objs += [os.path.join(out_dir, "SMPL", RP_SUBJECT + ".obj")]
+        assert os.path.exists(os.path.join(out_dir, "SMPL",
+                                           RP_SUBJECT + ".npy"))
+    for path, shape in pngs.items():
+        assert read_png(path).shape == shape, (path, shape)
+    for path in objs:
+        m = load_obj(path)
+        assert len(m.faces) and np.isfinite(m.verts).all(), path
+    params, trace = None, None
+    if "smplify" in tasks:
+        params = np.load(os.path.join(sub, "smplify", "smpl_parameter.npy"),
+                         allow_pickle=True).item()
+        assert set(PARAM_KEYS) <= set(params), sorted(params)
+        for k, v in params.items():
+            assert np.isfinite(v).all(), k
+        recs = [json.loads(ln) for ln in
+                open(os.path.join(out_dir, "loss_trace.jsonl"))]
+        trace = np.asarray(recs[-1]["losses"])
+        assert recs[-1]["frame"] == RP_SUBJECT and np.isfinite(trace).all()
+    return params, trace
+
+
+def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
+    """The RenderPeople app end to end on a synthetic scan: (a) the scan fit
+    with SMPL+D, the texture fit and every output, (b) texfit and output on
+    (a)'s caches, (c) the --use_mask scan fit."""
+    import tempfile
+
+    import torch
+
+    from bodyfitting_torch.apps import renderpeople as app
+    from bodyfitting_torch.fitting import texture as tf
+    from bodyfitting_torch.io.png import read_png
+    from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.models.hmr import seeded_state_dict
+    from bodyfitting_torch.ops.nearest import nearest_points
+    from bodyfitting_torch.utils.uv_unwrap import per_face_atlas
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.TemporaryDirectory(prefix="bodyfit_rp_")
+    root = tmp.name
+    try:
+        fixtures = check_jpeg_fixtures()
+        # the scan phase's synthetic SMPL as an asset file: the app loads
+        # it with the licensed model's joint selectors, so the ground truth
+        # is posed with the model as the app loads it
+        synth = bm.synthetic_model("smpl", num_verts=size["num_verts"],
+                                   mesh="sphere", seed=0, device=device)
+        asset = os.path.join(root, "SMPL_NEUTRAL.npz")
+        write_smpl_asset(asset, synth)
+        ckpt = os.path.join(root, "hmr.pth")
+        torch.save(seeded_state_dict(0), ckpt)
+        base = ["--target_dir", os.path.join(root, "scans"),
+                "--smpl_type", "smpl", "--viewnum", str(size["viewnum"]),
+                "--load_size", str(size["load_size"]), "--model_path", asset,
+                "--hmr_checkpoint", ckpt]
+        model = app.load_body_model(app.config_parser().parse_args(base),
+                                    device=device)
+        for k in ("v_template", "shapedirs", "posedirs", "J_regressor",
+                  "lbs_weights", "faces"):
+            assert torch.equal(getattr(model, k), getattr(synth, k)), k
+        data = write_rp_scans(root, model, size)
+        scan = data["scan"]
+        log(f"rp app: scan {len(scan.verts)} vertices {len(scan.faces)} faces "
+            f"({data['obj_mib']:.1f} MiB OBJ written in {data['write_s']:.3f} "
+            f"s); OBJ parse {data['parse_s'] * 1e3:.1f} ms, 2048^2 JPEG "
+            f"decode {data['decode_s'] * 1e3:.1f} ms (host clock, {smi})")
+        # the app's ring views of the scan it loads
+        center, _, dist = tf.scene_bounds(scan.verts)
+        w2cs = tf.ring_poses(center, size["viewnum"], dist)
+        K = tf.default_K(size["load_size"])
+        texfit = ["--auto_uv", "--inpaint", "--disp_map", "--debug",
+                  "--timing", "--tex_iters", str(size["tex_iters"])]
+        n_uniq = len(np.unique(tf.training_pose_schedule(
+            tf.TextureFitConfig(iter_num=size["tex_iters"]), center,
+            dist).reshape(size["tex_iters"], -1), axis=0))
+        n_vol = -(-96 ** 3 // 65536)
+        post_gate = size["mask_iters"] - size["mask_iters"] // 3 - 1
+        out_a, out_c = (os.path.join(root, n) for n in ("out_a", "out_c"))
+        plan = (
+            ("a", out_a, ["--tasks", "smplify", "smpld", "texfit", "output",
+                          "--num_iters", str(size["num_iters"])] + texfit,
+             dict(nearest_d2_idx=n_vol,
+                  rasterize_zbuf=size["viewnum"] + 1 + 2 * 36,
+                  rasterize_attrs=2 * n_uniq)),
+            ("b", out_a, ["--tasks", "texfit", "output"] + texfit,
+             dict(nearest_d2_idx=0, rasterize_zbuf=1 + 2 * 36,
+                  rasterize_attrs=2 * n_uniq)),
+            ("c", out_c, ["--use_mask", "--tasks", "smplify", "--num_iters",
+                          str(size["mask_iters"])],
+             dict(nearest_d2_idx=n_vol, rasterize_zbuf=size["viewnum"],
+                  bilinear_cov_grads=2 * post_gate,
+                  contour_match_full=post_gate, rows_scatter_add=post_gate)),
+        )
+        clean = {}
+        runs = {}
+        captured = {}      # run (c)'s last silhouette kernel calls
+
+        def keep_last(kernel, fn):
+            def wrapped(*a, **kw):
+                key = kernel
+                if kernel == "bilinear_cov_grads":
+                    key = "stay-inside" if kw["with_grads"] else "lookup"
+                captured[key] = (tuple(x.detach() if torch.is_tensor(x)
+                                       else x for x in a), kw)
+                return fn(*a, **kw)
+            return wrapped
+
+        for name, out, extra, expect in plan:
+            if out not in clean:
+                clean[out] = write_rp_keypoints(out, data["joints"], w2cs, K)
+            smpl_png = os.path.join(out, RP_SUBJECT, "texfit", "smpl.png")
+            before = (open(smpl_png, "rb").read() if os.path.exists(smpl_png)
+                      else None)
+            argv = base + ["--output_dir", out] + extra
+            with (silhouette_ops(keep_last) if name == "c"
+                  else contextlib.nullcontext()):
+                wall, counts, runner = run_app(argv, device, app)
+            tasks = extra[extra.index("--tasks") + 1:]
+            tasks = tasks[:next((i for i, t in enumerate(tasks)
+                                 if t.startswith("--")), len(tasks))]
+            params, trace = read_rp_outputs(out, size, tasks,
+                                            "--debug" in extra)
+            assert runner.model is model
+            expect = {k: expect.get(k, 0) for k in counts}
+            log(f"rp app run ({name}): tasks {' '.join(tasks)}; {wall:.3f} s "
+                f"wall; stages (s) {json.dumps(runner.timings[RP_SUBJECT])}; "
+                f"launches {counts} (expected {expect}); {smi}")
+            if on_card:
+                assert counts == expect, (name, counts, expect)
+            r = dict(wall=wall, counts=counts, timing=runner.timings[
+                RP_SUBJECT])
+            if params is not None:
+                r["trace"] = trace
+                r["params_sha1"] = params_sha1({0: params})
+                log(f"rp app run ({name}): fitted parameters sha1 "
+                    f"{r['params_sha1']}; loss first / last {trace[0]:.3f} / "
+                    f"{trace[-1]:.3f} over {len(trace)} steps")
+                px = np.linalg.norm(np.stack([
+                    project(params["joints"][:25], np.linalg.inv(w2c), K)
+                    for w2c in w2cs]) - clean[out], axis=-1).mean()
+                r["px"] = float(px)
+            if name == "b":
+                after = open(smpl_png, "rb").read()
+                r["smpl_png_equal"] = after == before
+                log(f"rp app run (b): texfit/smpl.png equals run (a)'s byte "
+                    f"for byte: {r['smpl_png_equal']} "
+                    f"(sha1 {hashlib.sha1(after).hexdigest()})")
+                assert r["smpl_png_equal"], "run (b)'s texture differs"
+            runs[name] = r
+
+        # run (a)'s fit against the ground truth and the scan
+        pa = np.load(os.path.join(out_a, RP_SUBJECT, "smplify",
+                                  "smpl_parameter.npy"),
+                     allow_pickle=True).item()
+        dev = torch.device(device)
+        sv_t = torch.as_tensor(scan.verts, device=dev)
+        sf_t = torch.as_tensor(scan.faces.astype(np.int64), device=dev)
+        smpld = pa["vertices"] + pa["displacement"]
+        mm = {}
+        for what, v in (("body", pa["vertices"]), ("SMPL+D", smpld)):
+            vt = torch.as_tensor(v, device=dev)
+            closest, _ = nearest_points(vt, sv_t, sf_t)
+            mm[what] = float((vt - closest).norm(dim=1).mean()) * 1e3
+        for name in ("a", "c"):
+            log(f"rp app run ({name}): fitted joints reproject "
+                f"{runs[name]['px']:.3f} px from the ground truth's keypoints "
+                f"on average (bound {size['max_px']} px)")
+        log(f"rp app run (a): mean distance to the scan {mm['body']:.3f} mm "
+            f"for the body, {mm['SMPL+D']:.3f} mm for SMPL+D (bound "
+            f"{size['max_mm']} mm)")
+        assert runs["a"]["px"] <= size["max_px"], runs["a"]["px"]
+        # run (c): the mask term is live after the gate
+        gate = size["mask_iters"] // 3
+        tc = runs["c"]["trace"]
+        log(f"rp app run (c): loss at the gate / after it / last "
+            f"{tc[gate]:.1f} / {tc[gate + 1]:.1f} / {tc[-1]:.1f} (the mask "
+            f"and point-to-scan terms start after step {gate})")
+        assert tc[gate + 1] > tc[gate], "mask term not live"
+        # the silhouette kernels at the inputs of run (c)'s last step: full
+        # f32 masks with coverage, the app's contour and vertex counts
+        silhouette = {}
+        if on_card:
+            silhouette = {r["name"]: r for r in (
+                check_bilinear_full(captured),
+                check_contour(captured["contour_match_full"][0],
+                              edge_cases=False),
+                check_scatter(captured["rows_scatter_add"][0],
+                              edge_cases=False))}
+        assert mm["SMPL+D"] <= size["max_mm"], mm
+        # the fitted texture against grey on the 18 ring views
+        cfg = tf.TextureFitConfig(iter_num=size["tex_iters"])
+        ring = tf.training_pose_schedule(cfg, center, dist)[:cfg.round_views]
+        suv, sfu = per_face_atlas(len(model.faces))
+        scene = (sv_t, sf_t, torch.as_tensor(scan.uvs[scan.face_uvs],
+                                             device=dev),
+                 torch.as_tensor(scan.texture, device=dev),
+                 torch.as_tensor(smpld, device=dev), model.faces.long(),
+                 torch.as_tensor(suv[sfu], device=dev))
+        maps = tf.texture_maps(torch.as_tensor(ring.astype(np.float32),
+                                               device=dev),
+                               torch.as_tensor(tf.default_K(
+                                   cfg.render_img_size), device=dev),
+                               scene, cfg.render_img_size)
+        fitted = torch.as_tensor(read_png(os.path.join(
+            out_a, RP_SUBJECT, "texfit", "smpl.png")).astype(np.float32)
+            / 255.0, device=dev)
+        grey = torch.full_like(fitted, 128.0 / 255.0)
+        l1 = [sum(float(tf.maps_loss(t, *(m[k] for m in maps)))
+                  for k in range(len(ring))) for t in (grey, fitted)]
+        log(f"rp app run (a): ring-view L1 over {len(ring)} views: grey "
+            f"texture {l1[0]:.1f}, fitted {l1[1]:.1f}")
+        assert l1[1] < l1[0], "the fitted texture is no closer than grey"
+        return dict(runs=runs, mm=mm, l1=l1, fixtures=fixtures,
+                    silhouette=silhouette,
+                    scan=dict(faces=len(scan.faces), parse_s=data["parse_s"],
+                              decode_s=data["decode_s"],
+                              write_s=data["write_s"]))
+    finally:
+        tmp.cleanup()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2411,6 +2903,13 @@ def main():
     table.extend(texture["table"])
     app = phase_app(smi=smi)
     table.extend(skin_rows(app))
+    rp = phase_rp_app(smi=smi)
+    for row in table:
+        row["launches_rp_app"] = {k: r["counts"][row["name"]]
+                                  for k, r in rp["runs"].items()}
+        if row["name"] in rp["silhouette"]:
+            row["rp_app_c"] = {k: v for k, v in rp["silhouette"][
+                row["name"]].items() if k != "name"}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,13 @@ orders; measured ~3e-7); OBJ lines are byte-equal except where a value
 sits on a rounding boundary of ``%.4f`` (then within 1e-4).  HMR agrees
 with the Flax HMR on converted weights to 1e-5; through the image
 preprocessing (the port's cubic resize is within one level of OpenCV's)
-to 2e-3.
+to 2e-3.  On a subject whose images are JPEGs the apps write equal
+crops for the views without OpenPose JSONs.
 """
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -69,9 +71,26 @@ def dataset(tmp_path_factory):
     return root
 
 
-def _write_jsons(out_dir, hand_face, seed=1):
-    """Per-view OpenPose JSONs for every view of every frame (the app's
-    cache check then skips the binary)."""
+@pytest.fixture(scope="module")
+def jpeg_dataset(tmp_path_factory, dataset):
+    """``dataset`` with its images as JPEGs written by OpenCV (the JAX app
+    test writes its subject's images as ``.jpg`` too)."""
+    import cv2
+
+    root = tmp_path_factory.mktemp("genebody_jpeg")
+    shutil.copytree(dataset / "genebody", root / "genebody")
+    sub = root / "genebody" / SUBJECT / "image"
+    for png_path in sorted(sub.glob("*/*.png")):
+        img = cv2.imread(str(png_path))
+        assert cv2.imwrite(str(png_path.with_suffix(".jpg")), img,
+                           [cv2.IMWRITE_JPEG_QUALITY, 90])
+        png_path.unlink()
+    return root
+
+
+def _write_jsons(out_dir, hand_face, seed=1, skip=()):
+    """Per-view OpenPose JSONs for every view of every frame but the views
+    in ``skip`` (the app's cache check then skips the binary)."""
     rng = np.random.default_rng(seed)
     for fr in range(N_FRAMES):
         d = os.path.join(out_dir, SUBJECT, "%06d" % fr, "openpose")
@@ -86,6 +105,8 @@ def _write_jsons(out_dir, hand_face, seed=1):
                 person.update(hand_left_keypoints_2d=block(21),
                               hand_right_keypoints_2d=block(21),
                               face_keypoints_2d=block(70))
+            if v in skip:
+                continue
             with open(os.path.join(d, "%02d_keypoints.json" % v), "w") as f:
                 json.dump({"people": [person]}, f)
 
@@ -155,6 +176,49 @@ def test_port_app_matches_jax_app(dataset, tmp_path, extra):
         timing = json.load(open(tmp_path / "port" / SUBJECT / "timing.json"))
         assert {"prep/images", "prep/observations", "fit/dispatch",
                 "fit/device_wait", "write/outputs"} <= set(timing)
+
+
+def test_port_app_matches_jax_app_on_jpeg_images(jpeg_dataset, tmp_path):
+    """The subject's images are JPEGs: both apps decode them for the HMR
+    keyframe (an HMR checkpoint whose first convolution is zero, so its
+    output does not depend on the cubic resize, which is within one
+    level of OpenCV's) and for the views without OpenPose JSONs, whose
+    crops they write for the binary; those crops are equal, and the fits
+    agree at the tolerances above."""
+    from bodyfitting_tpu.apps import genebody as japp
+    from bodyfitting_torch.models.hmr import seeded_state_dict
+
+    ckpt = tmp_path / "hmr.pth"
+    sd = seeded_state_dict(3)
+    sd["conv1.weight"] = torch.zeros_like(sd["conv1.weight"])
+    torch.save(sd, str(ckpt))
+    skip = (4, 30)
+    extra = ["--hmr_checkpoint", str(ckpt)]
+    outs = {}
+    for name in ("jax", "port"):
+        out = tmp_path / name
+        _write_jsons(str(out), False, skip=skip)
+        argv = _argv(jpeg_dataset, out, extra, iters=6)
+        argv.remove("openpose")                          # no binary here
+        if name == "port":
+            papp.main(argv, device="cpu")
+        else:
+            japp.Runner(japp.config_parser().parse_args(argv)).run()
+        outs[name] = _outputs(out)
+    (jp, jo, jt), (pp, po, pt) = outs["jax"], outs["port"]
+    for a, b in zip(jp, pp):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=1e-5,
+                                       err_msg=k)
+    for a, b in zip(jt, pt):
+        np.testing.assert_allclose(b["losses"], a["losses"], rtol=1e-5)
+    for fr in range(N_FRAMES):
+        for v in skip:
+            rel = os.path.join(SUBJECT, "%06d" % fr, "images", "%02d.png" % v)
+            np.testing.assert_array_equal(
+                papp.imread_checked(str(tmp_path / "port" / rel)),
+                papp.imread_checked(str(tmp_path / "jax" / rel)))
 
 
 def test_pipelined_equals_serial(dataset, tmp_path):

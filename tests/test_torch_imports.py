@@ -58,10 +58,10 @@ def test_importing_the_port_loads_no_jax():
         "from bodyfitting_torch.ops import kernels, nearest, rasterize, sdf\n"
         "from bodyfitting_torch.ops.kernels import skinning\n"
         "from bodyfitting_torch.utils import observability, uv_unwrap\n"
-        "from bodyfitting_torch.apps import genebody\n"
+        "from bodyfitting_torch.apps import genebody, renderpeople\n"
         "from bodyfitting_torch.fitting import sequence\n"
-        "from bodyfitting_torch.io import cameras, images, obj, openpose, "
-        "params, png\n"
+        "from bodyfitting_torch.io import cameras, images, jpeg, obj, "
+        "openpose, params, png, scan_prep\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bodyfitting_tpu')]\n"
         "assert not bad, bad\n"
@@ -104,6 +104,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         lambda: tf.atlas_coverage_mask(uv, 8),
         lambda: tf.bake_displacement_map(uv, tri, quad, 8),
         lambda: tf.inpaint_unseen(tex, np.ones((4, 4), bool)),
+        lambda: tf.render_compare((quad, tri, uv, tex), (quad, tri, uv, tex),
+                                  "never_written", viewnum=1, imgsize=8),
         lambda: Inpainter(),
     ]
     # the GeneBody app and what it loads
@@ -118,6 +120,11 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
         lambda: bm.load_model("missing.npz"),
         lambda: bf.HMRBundle.load("missing.pth"),
     ]
+    # the RenderPeople app
+    from bodyfitting_torch.apps import renderpeople as rp
+
+    rp_args = rp.config_parser().parse_args([])
+    calls += [lambda: rp.Runner(rp_args), lambda: rp.main([])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -167,9 +167,14 @@ def test_png_refuses_what_it_does_not_decode(tmp_path):
             png.read_png(path)
     with pytest.raises(FileNotFoundError, match="missing.png"):
         pimg.imread_checked(str(tmp_path / "missing.png"))
+    # a JPEG decodes (io/jpeg.py) as cv2 reads it; a cut one is refused
+    # with the file's name, as a PNG the decoder refuses
     jpg = str(tmp_path / "photo.jpg")
-    cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="photo.jpg"):
+    cv2.imwrite(jpg, np.full((8, 8, 3), 77, np.uint8))
+    np.testing.assert_array_equal(pimg.imread_checked(jpg), cv2.imread(jpg))
+    data = open(jpg, "rb").read()
+    open(jpg, "wb").write(data[:len(data) // 2])
+    with pytest.raises(FileNotFoundError, match="photo.jpg"):
         pimg.imread_checked(jpg)
 
 

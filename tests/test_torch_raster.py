@@ -268,3 +268,21 @@ def test_bilinear_sample_uv_values_and_gradients_match_jax():
                                rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(gu.numpy()[1:], np.asarray(jgu)[1:],
                                rtol=1e-5, atol=1e-4)
+
+
+def test_texture_gradient_sums_colliding_taps_in_position_order():
+    """The gather's backward adds the cotangent rows that share a texel in
+    ascending position, on every device: here bitwise ``np.add.at``'s
+    sequential sum (autograd's own CPU scatter-add, ``index_put_`` with
+    ``accumulate``, takes another order at this size in PyTorch 2.13)."""
+    rng = np.random.default_rng(14)
+    rows, n = 7000, 20000
+    idx = rng.integers(0, rows, size=n)
+    g = rng.normal(size=(n, 3)).astype(np.float32)
+    table = torch.zeros((rows, 3), requires_grad=True)
+    (got,) = torch.autograd.grad(
+        trz._Gather.apply(table, torch.as_tensor(idx)), table,
+        torch.as_tensor(g))
+    ref = np.zeros((rows, 3), np.float32)
+    np.add.at(ref, idx, g)
+    np.testing.assert_array_equal(got.numpy(), ref)

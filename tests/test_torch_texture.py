@@ -159,8 +159,27 @@ def test_per_face_atlas_matches_jax():
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         tuv.per_face_atlas(0)
-    with pytest.raises(NotImplementedError):
-        tuv.make_uv_template(None, faces, path="t.obj")
+
+
+def test_make_uv_template_writes_the_jax_template(tmp_path):
+    """The OBJ template (``vt`` / ``f v/vt`` lines and its MTL) is written
+    byte for byte as the JAX writer does, and reads back as the atlas."""
+    from bodyfitting_torch.io.obj import load_obj
+
+    rng = np.random.default_rng(0)
+    verts = rng.normal(size=(12, 3)).astype(np.float32)
+    faces = rng.integers(0, 12, size=(9, 3)).astype(np.int32)
+    for pkg, tag in ((tuv, "port"), (juv, "jax")):
+        uvs, fu = pkg.make_uv_template(verts, faces,
+                                       str(tmp_path / f"{tag}.obj"))
+    for ext in (".obj", ".mtl"):
+        port = open(tmp_path / f"port{ext}").read()
+        jax_ = open(tmp_path / f"jax{ext}").read()
+        assert port == jax_.replace("jax.mtl", "port.mtl")
+    back = load_obj(str(tmp_path / "port.obj"))
+    np.testing.assert_array_equal(back.face_uvs, fu)
+    np.testing.assert_array_equal(back.faces, faces)
+    np.testing.assert_allclose(back.uvs, uvs, rtol=0, atol=5e-7)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -11,10 +11,17 @@ batch: prep threads build each frame's observations on the host and run
 HMR on a stream of their own, and the fit copies a batch to the card on
 its stream just before it starts.
 
+``--native_openpose`` runs the in-repo OpenPose detector
+(``models/openpose_infer.py``: body, and for SMPL-X hand and face nets)
+on the card instead of the OpenPose binary, on the prep threads and on a
+stream of its own; one frame detects at a time, so two frames in flight
+never hold two detectors' activations.  ``--openpose_ckpt_dir`` names the
+directory of the released ``body_pose_model.pth``,
+``hand_pose_model.pth`` and ``face_pose_model.pth``.
+
 Not ported, and refused with an error: ``--data_parallel`` (ROADMAP §1
-item 6) and ``--native_openpose`` (item 4).  Images are PNG or JPEG,
-decoded by the port's own readers (``io/png.py``, ``io/jpeg.py``): the
-card's machine has no image library.
+item 4).  Images are PNG or JPEG, decoded by the port's own readers
+(``io/png.py``, ``io/jpeg.py``): the card's machine has no image library.
 
 Run:  python -m bodyfitting_torch.apps.genebody --target_dir ... --subject ...
 """
@@ -65,10 +72,12 @@ def config_parser():
                    help="annots.npy with camera parameters")
     p.add_argument("--output_dir", type=str, default="./logs")
     p.add_argument("--native_openpose", default=False, action="store_true",
-                   help="the in-repo detector; not ported (raises)")
+                   help="detect keypoints with the in-repo OpenPose nets "
+                        "on the card instead of the openpose binary")
     p.add_argument("--openpose_ckpt_dir", type=str, default=None,
-                   help="checkpoints of the native detector (with "
-                        "--native_openpose; not ported)")
+                   help="directory of body_pose_model.pth, "
+                        "hand_pose_model.pth and face_pose_model.pth (with "
+                        "--native_openpose; random weights without it)")
     p.add_argument("--openpose_dir", type=str, default="../openpose",
                    help="directory of the built openpose binary")
     p.add_argument("--info_dir", type=str, default=None,
@@ -217,12 +226,7 @@ class Runner:
         if args.data_parallel:
             raise NotImplementedError(
                 "--data_parallel (frame batches sharded over several "
-                "devices) is not ported yet: ROADMAP §1 item 6")
-        if args.native_openpose:
-            raise NotImplementedError(
-                "--native_openpose (the in-repo detector) is not ported "
-                "yet: ROADMAP §1 item 4; run the openpose binary or "
-                "provide the keypoint JSONs")
+                "devices) is not ported yet: ROADMAP §1 item 4")
         self.args = args
         self.device = default_device(device)
         self.subject = args.subject
@@ -248,6 +252,11 @@ class Runner:
             # after the weights' uploads on the current stream
             self._hmr_stream.wait_stream(
                 torch.cuda.current_stream(self.device))
+        # the native detector: made at first use; detection runs under the
+        # lock, one frame at a time, on a stream of its own
+        self._native_detectors = None
+        self._detector_lock = threading.Lock()
+        self._detect_stream = None
         self.seqs = self._sequence()
         self._debug_data = {}   # frame -> (images, c2ws, Ks, view ids)
         self._smpl_stage_model = None
@@ -403,11 +412,67 @@ class Runner:
         n_json = len([f for f in os.listdir(wrt_dir) if f.endswith(".json")])
         if n_json >= len(data[0]):
             return                          # cached
+        if self.args.native_openpose:
+            self._native_detect(img_dir, wrt_dir)
+            return
         hand_face = ["--hand", "--face"] if self.use_hand_face else []
         cmd = ["build/examples/openpose/openpose.bin",
                "--image_dir", img_dir, "--write_json", wrt_dir,
                "--display", "0", "--render_pose", "0"] + hand_face
         subprocess.run(cmd, cwd=self.args.openpose_dir, check=True)
+
+    def _native_detect(self, img_dir, wrt_dir):
+        """In-process drop-in for the binary: the OpenPose nets on
+        ``self.device``.  Serialised (one frame at a time) and on the
+        detector's own stream, which ``detect_to_json`` drains before it
+        writes the JSONs."""
+        from bodyfitting_torch.models import openpose_infer as opi
+
+        with self._detector_lock:
+            self._init_native_detectors()
+            body, hand, face = self._native_detectors
+            with (torch.cuda.stream(self._detect_stream)
+                  if self._detect_stream is not None
+                  else contextlib.nullcontext()):
+                opi.detect_to_json(img_dir, wrt_dir, body, hand=hand,
+                                   hand_face=self.use_hand_face, face=face)
+
+    def _init_native_detectors(self):
+        from bodyfitting_torch.models import openpose_infer as opi
+
+        if self._native_detectors is not None:
+            return
+        ckpt = self.args.openpose_ckpt_dir
+
+        def path(name):
+            if ckpt is None:
+                return None
+            p = os.path.join(ckpt, name)
+            if not os.path.exists(p):
+                # a typo'd directory silently detecting with random
+                # weights would poison the JSON cache for every later run
+                raise FileNotFoundError(
+                    f"--openpose_ckpt_dir given but {p} is missing")
+            return p
+
+        if ckpt is None:
+            print("WARNING: --native_openpose without --openpose_ckpt_dir "
+                  "runs randomly-initialized detectors (tests only)",
+                  file=sys.stderr)
+        body = opi.BodyDetector(path("body_pose_model.pth"),
+                                device=self.device)
+        hand = face = None
+        if self.use_hand_face:
+            hand = opi.HandDetector(path("hand_pose_model.pth"),
+                                    device=self.device)
+            face = opi.FaceDetector(path("face_pose_model.pth"),
+                                    device=self.device)
+        if self.device.type == "cuda":
+            self._detect_stream = torch.cuda.Stream(self.device)
+            # after the weights' uploads on the current stream
+            self._detect_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+        self._native_detectors = (body, hand, face)
 
     def _mask_crop_hw(self, masks):
         """The crop shape shared by the subject's frames: the first

@@ -170,6 +170,21 @@ def hmr_state_dict_from_flax(variables: dict) -> dict:
     return {k: np.array(v, order="C") for k, v in out.items()}
 
 
+def openpose_state_dict_from_flax(variables: dict) -> dict:
+    """A released OpenPose file's flat state dict (numpy arrays by key)
+    from the JAX package's Flax body, hand or face variables (handed over
+    as nested dicts of numpy arrays): the inverse of
+    ``models/openpose.py:convert_openpose_torch``.  Kernels HWIO -> OIHW."""
+    out = {}
+    for layer, mods in variables.get("params", variables).items():
+        conv = mods["conv"]
+        out[f"{layer}.weight"] = np.array(
+            np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1),
+            order="C")
+        out[f"{layer}.bias"] = np.array(conv["bias"], np.float32)
+    return out
+
+
 def observations_from_numpy(fields: dict, batched: bool = False,
                             dtype=None, device=None) -> Observations:
     """:class:`Observations` from a JAX ``Observations``' array fields

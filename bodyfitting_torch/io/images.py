@@ -4,8 +4,11 @@ Counterpart of ``bodyfitting_tpu/io/images.py`` without OpenCV.  The
 square bbox and the intrinsics adjustment are the same decisions;
 ``crop_and_resize`` reproduces ``cv2.resize(..., INTER_LINEAR)``'s
 arithmetic on uint8 (11-bit fixed-point weights, OpenCV's rounding), and
-:func:`resize_cubic` ``INTER_CUBIC``'s within one level (see each).
-Images decode through ``io/png.py`` and ``io/jpeg.py``.
+:func:`resize_cubic` ``INTER_CUBIC``'s within one level (see each).  The
+OpenPose detector's two ``INTER_CUBIC`` resizes run as torch functions
+where the tensors are (:func:`resize_u8_cubic_fx`,
+:func:`resize_maps_cubic`).  Images decode through ``io/png.py`` and
+``io/jpeg.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from bodyfitting_torch.io.jpeg import (
     SIGNATURE as JPEG_SIGNATURE,
@@ -217,6 +222,69 @@ def resize_cubic(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
              for k in range(4))
     return np.clip(np.rint(vt / float(1 << (2 * _COEF_BITS))), 0,
                    255).astype(np.uint8)
+
+
+def _cubic_taps_fx(src: int, dst: int, fx: float):
+    """``cv2.resize``'s INTER_CUBIC taps along one axis when the scale is
+    given (``fx``): positions map by ``1 / fx``, the fraction is taken in
+    float64 and the weights (A = -0.75) computed in float64 and stored as
+    float32; borders replicate.  ``(idx [dst, 4], weights [dst, 4])``."""
+    f = (np.arange(dst) + 0.5) * (1.0 / fx) - 0.5
+    s = np.floor(f)
+    wts = _cubic_weights(f - s).astype(np.float32)
+    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3), 0, src - 1)
+    return idx, wts
+
+
+def resize_u8_cubic_fx(imgs: torch.Tensor, fx: float) -> torch.Tensor:
+    """``cv2.resize(img, (0, 0), fx=fx, fy=fx, interpolation=INTER_CUBIC)``
+    of each uint8 image of ``imgs [N, H, W, C]``, where the tensor lies.
+
+    OpenCV sizes the output as ``round(src * fx)`` and maps coordinates by
+    ``1 / fx`` (not ``src / dst``).  On uint8 its cubic filter runs in
+    floating point (the fixed-point formulation of :func:`resize_cubic`
+    misses at ~5 % of the pixels): this is a horizontal then a vertical
+    pass, each four float32-weighted taps summed in float64 and stored as
+    float32, rounded once to the nearest level.  It equals OpenCV 5.0's
+    result but at ~6e-6 of the pixels, where it is one level off
+    (``tests/test_torch_openpose.py`` measures the share)."""
+    N, H, W = imgs.shape[:3]
+    oh, ow = int(round(H * fx)), int(round(W * fx))
+    dev = imgs.device
+
+    def taps(src, dst):
+        idx, wts = _cubic_taps_fx(src, dst, fx)
+        return (torch.as_tensor(idx, device=dev),
+                torch.as_tensor(wts, dtype=torch.float64, device=dev))
+
+    xi, xw = taps(W, ow)
+    yi, yw = taps(H, oh)
+    x = imgs.to(torch.float64)
+    hz = None
+    for k in range(4):
+        t = x[:, :, xi[:, k]] * xw[None, None, :, k, None]
+        hz = t if hz is None else hz + t
+    hz = hz.to(torch.float32).to(torch.float64)
+    vt = None
+    for k in range(4):
+        t = hz[:, yi[:, k]] * yw[None, :, k, None, None]
+        vt = t if vt is None else vt + t
+    out = torch.round(vt.to(torch.float32)).clamp_(0, 255)
+    return out.to(torch.uint8)
+
+
+def resize_maps_cubic(maps: torch.Tensor, size=None,
+                      factor=None) -> torch.Tensor:
+    """``cv2.resize(m, ..., interpolation=INTER_CUBIC)`` of float32 maps
+    ``[N, C, h, w]`` to ``size = (H, W)`` or by an integer ``factor``
+    (``fx = fy = factor``): PyTorch's bicubic (A = -0.75, replicated
+    borders, no antialias) agrees with OpenCV to float32 rounding of the
+    sample positions (1e-6 of the maps' scale in the tests)."""
+    if factor is not None:
+        return F.interpolate(maps, scale_factor=factor, mode="bicubic",
+                             align_corners=False)
+    return F.interpolate(maps, size=tuple(size), mode="bicubic",
+                         align_corners=False)
 
 
 def adjust_K_for_crop(K: np.ndarray, bbox: tuple[int, int, int, int],

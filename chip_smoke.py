@@ -129,6 +129,29 @@ Phases; the first failure ends the run with a non-zero exit code:
    ``rp_app_c``).  Printed: the OBJ parse and JPEG decode times, each
    run's stages (``--timing``), launches and parameter sha1.
 
+11. the native OpenPose detector and ``fit_resumable``: phase 9's subject
+   for 2 frames with an RGB image for every view (the body's splat,
+   shaded, on a plain background).  Seeded body, hand and face weights
+   in the released flat layout are written to a temporary
+   ``--openpose_ckpt_dir``, each last-stage head set channel by channel
+   on frame 0's crops so a view yields a few peaks a part (random nets
+   give thousands) and the PAFs point along an upright skeleton's limbs.
+   Under PyTorch's default ``cudnn.allow_tf32`` (printed): (a) ``--tasks
+   openpose --native_openpose`` at ``--load_size 512`` through the app:
+   one parseable JSON a view, read back by ``load_openpose``; the
+   detector's seconds a frame, its FLOP (counted from the convolutions'
+   shapes) and TFLOP/s per net, its parts timed apart (each scale's
+   batch, hands, face, the peaks on the card, the PAF gather, the host
+   assembly) and the bytes copied to the host; the body pass at 368^2
+   with TF32 on and off; (b) on 2 views the body maps at scale 0.5, card
+   (TF32 on and off) against the CPU, and the card's peaks and people
+   against the host path on the card's maps, exactly; (c) ``--tasks
+   smplify output`` on (a)'s JSONs, 60 iterations; (d)
+   ``fit_resumable`` on phase 3's problem in chunks of 100, stopped at
+   step 300 (past the gate) and resumed by a fresh call: parameters and
+   loss trace bitwise phase 3's; the checkpoint's bytes and its save
+   and load ms.
+
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -138,6 +161,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -148,6 +172,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CUDNN_TF32_DEFAULT = True     # PyTorch's default; phase_device reads it
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), at a 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -675,7 +700,10 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    # plain f32 everywhere: no TF32 in matmuls or convolutions
+    # plain f32 everywhere: no TF32 in matmuls or convolutions (phase 11
+    # runs the OpenPose convolutions under PyTorch's default, kept here)
+    global CUDNN_TF32_DEFAULT
+    CUDNN_TF32_DEFAULT = torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -804,9 +832,10 @@ def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
         f"ms/iteration after it ({n} steps each, host clock)")
     if profile:
         profile_steps(step_fn, range(gate + 4 + n, gate + 24 + n))
-    return dict(model=model, prior=prior, obs=obs, params=params,
-                config=config, models=models, launches=launches,
-                wall=wall, pre_ms=pre, post_ms=post, digest=digest)
+    return dict(model=model, prior=prior, obs=obs, init=init, params=params,
+                losses=losses, config=config, models=models,
+                launches=launches, wall=wall, pre_ms=pre, post_ms=post,
+                digest=digest)
 
 
 def profile_steps(step_fn, steps, what="post-gate steps"):
@@ -1932,7 +1961,7 @@ def _aa_to_rotmat_np(aa):
     return rodrigues(torch.tensor(np.asarray(aa, np.float64))).numpy()
 
 
-def write_genebody_subject(root, model, size, seed=0):
+def write_genebody_subject(root, model, size, seed=0, all_images=False):
     """A synthetic GeneBody subject under ``root/genebody/smoke``, written
     with the port's own writers: ``annots.npy`` with 48 ring cameras,
     ``mask/%02d/%04d.png`` at the capture resolution for every view and
@@ -1941,6 +1970,8 @@ def write_genebody_subject(root, model, size, seed=0):
     SMPL-X bodies projected into each view's 512^2 crop, plus 1 px of
     noise: these stand in for the openpose.bin run.  The bodies face the
     keyframe camera as HMR's mean pose does, turned by a seeded 0.15 rad.
+    ``all_images`` writes an RGB image for every view instead: the body's
+    splat shaded by height and a smooth pattern, on a plain background.
     Returns the keypoints and what the checks need."""
     import torch
 
@@ -1981,13 +2012,25 @@ def write_genebody_subject(root, model, size, seed=0):
     def mask_of(f, v):
         """The view's silhouette, splatted at 1/s of the capture size and
         blown up, so 768 full-resolution masks take seconds."""
-        m = splat_mask(project(verts[f], c2ws[v], Ks[v]) / s, W // s, 2,
-                       height=H // s)
+        m = splat_mask(project(verts[f], c2ws[v], Ks[v]) / s, W // s,
+                       size.get("mask_dilate", 2), height=H // s)
         return np.repeat(np.repeat((m > 0).astype(np.uint8) * 255, s, 0), s, 1)
 
+    def shaded(m, v):
+        """The view's RGB image: the silhouette shaded by height and a
+        smooth pattern on a plain grey background."""
+        h, w = m.shape
+        y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+        x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+        lum = 0.55 + 0.25 * np.cos(9.0 * y + 0.3 * v) * np.cos(7.0 * x)
+        skin = np.array([205.0, 150.0, 120.0], np.float32)
+        img = np.where((m > 0)[..., None], skin * lum[..., None], 96.0)
+        return img.astype(np.uint8)
+
+    image_views = range(n_views) if all_images else (0, key)
     for v in range(n_views):
         os.makedirs(os.path.join(sub, "mask", "%02d" % v))
-    for v in (0, key):
+    for v in image_views:
         os.makedirs(os.path.join(sub, "image", "%02d" % v))
 
     def write_view(job):
@@ -1997,8 +2040,9 @@ def write_genebody_subject(root, model, size, seed=0):
         write_png(os.path.join(sub, "mask", "%02d" % v, "%04d.png" % f), m,
                   level=1)
         dt = time.perf_counter() - t0
-        if v in (0, key):
-            img = np.repeat(m[..., None] // 2, 3, 2)       # grey person
+        if v in image_views:
+            img = (shaded(m, v) if all_images
+                   else np.repeat(m[..., None] // 2, 3, 2))   # grey person
             write_png(os.path.join(sub, "image", "%02d" % v, "%04d.png" % f),
                       img, level=1)
         bbox = mask_square_bbox(m)
@@ -2876,6 +2920,512 @@ def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
         tmp.cleanup()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the native OpenPose detector in the GeneBody app; fit_resumable
+# ---------------------------------------------------------------------------
+
+# Two frames of phase 9's synthetic subject (48 ring views at 2448 x 2048,
+# an RGB image for every view) through --native_openpose at --load_size
+# 512, with the detector's own scales: the body at 0.5-2.0 x 368 / 512,
+# each hand crop at four scales, the face at 368^2.
+OPENPOSE_PATH = dict(APP_PATH, frames=2, fit_iters=60, cpu_views=2,
+                     peaks_per_part=2, body_scales=(0.5, 1.0, 1.5, 2.0),
+                     hand_scales=(0.5, 1.0, 1.5, 2.0), boxsize=368,
+                     face_boxsize=368, chunk=100,
+                     # hand and face crop maps of (a) held card vs host in
+                     # (b), of each kind (those with a confident point)
+                     crop_checks=3,
+                     # masks dilated to a filled body: the app keeps only
+                     # the image's masked pixels
+                     mask_dilate=6,
+                     # card vs CPU on the body maps at scale 0.5, of the
+                     # maps' largest magnitude: TF32 convolutions (the
+                     # default; measured 3.8e-3) and float32 ones (1.8e-5)
+                     tol_tf32=2e-2, tol_fp32=1e-4)
+H100_TF32_FLOPS_PER_S = 495e12   # dense TF32 tensor cores, data sheet
+
+# An upright COCO-18 stick figure (image coordinates, y down): each limb's
+# direction, which the seeded PAF heads are set to point along.
+SKELETON = {0: (0, -42), 1: (0, -30), 2: (-12, -30), 3: (-16, -12),
+            4: (-18, 4), 5: (12, -30), 6: (16, -12), 7: (18, 4),
+            8: (-8, 0), 9: (-9, 20), 10: (-10, 40), 11: (8, 0),
+            12: (9, 20), 13: (10, 40), 14: (-4, -45), 15: (4, -45),
+            16: (-9, -43), 17: (9, -43)}
+
+
+@functools.lru_cache(maxsize=None)
+def net_flops(kind, h, w):
+    """Operations (2 per multiply-add) of one pass of the ``kind`` OpenPose
+    net on an ``h x w`` input, counted over its convolutions' shapes in a
+    forward on the meta device."""
+    import torch
+
+    from bodyfitting_torch.models import openpose as op
+
+    net = op.net_structure(kind)
+    total = [0]
+
+    def hook(mod, inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2 * out.numel() * mod.in_channels * k
+
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook)
+    net(torch.empty((1, 3, h, w), device="meta"))
+    return total[0]
+
+
+def padded_hw(hw, scale, stride=8):
+    """The net's input size for an image of ``hw`` at ``scale``: OpenCV's
+    ``round(src * scale)``, padded up to the stride."""
+    return tuple(-(-int(round(n * scale)) // stride) * stride for n in hw)
+
+
+def _median_over_views(x):
+    return x.median(dim=0).values.double().cpu().numpy()
+
+
+def calibrate_openpose(images, ckpt_dir, device, size, seed=0):
+    """Seeded weights of the three nets in the released flat layout,
+    written to ``ckpt_dir``, with the last stage's heads set channel by
+    channel (an affine map of each output channel: its kernel row scaled,
+    its bias set) so that, on ``images`` (uint8 BGR crops of one frame):
+    each body part's smoothed heatmap has a median of ``peaks_per_part``
+    local maxima above the 0.1 threshold and its strongest peak at 0.6;
+    each PAF channel has the direction of its limb in :data:`SKELETON` as
+    its mean and 0.3 as its spread; each hand and face part is above the
+    0.05 blob threshold at its top 0.1 % of pixels and peaks at 0.4.
+    Random nets give maps of arbitrary scale and thousands of peaks."""
+    import torch
+
+    from bodyfitting_torch.models import openpose as op
+    from bodyfitting_torch.models import openpose_infer as opi
+
+    k = size["peaks_per_part"]
+    imgs = torch.as_tensor(np.stack(images)).to(device)
+    nets, sds, out = {}, {}, {}
+
+    def affine(sd, layer, a, b):
+        a = torch.as_tensor(a, dtype=torch.float32)
+        sd[layer + ".weight"] = sd[layer + ".weight"] * a[:, None, None, None]
+        sd[layer + ".bias"] = sd[layer + ".bias"] * a + torch.as_tensor(
+            b, dtype=torch.float32)
+
+    for i, kind in enumerate(("body", "hand", "face")):
+        sds[kind] = op.seeded_state_dict(kind, seed + i)
+        nets[kind] = getattr(op, f"load_{kind}_net")(None, device, seed + i)
+    paf, heat = opi.multiscale_maps_batch(nets["body"], imgs, [38, 19],
+                                          boxsize=size["boxsize"],
+                                          scales=size["body_scales"])
+    tops = []
+    for c0 in range(0, len(imgs), 8):
+        sm = opi.gaussian_smooth(heat[c0:c0 + 8, :18])
+        loc = torch.where(opi._peak_mask(sm, -float("inf")), sm,
+                          torch.full_like(sm, -float("inf")))
+        tops.append(loc.flatten(2).topk(k + 1, dim=2).values)
+    tops = torch.cat(tops)                                  # [N, 18, k+1]
+    v1 = _median_over_views(tops[:, :, 0])
+    mid = 0.5 * (_median_over_views(tops[:, :, k - 1])
+                 + _median_over_views(tops[:, :, k]))
+    a = np.ones(19)
+    b = np.zeros(19)
+    a[:18] = 0.5 / (v1 - mid)
+    b[:18] = 0.1 - a[:18] * mid
+    affine(sds["body"], "Mconv7_stage6_L2", a, b)
+    flat = paf.transpose(0, 1).reshape(38, -1)
+    mean = flat.mean(1).double().cpu().numpy()
+    std = flat.std(1).double().cpu().numpy()
+    target = np.zeros(38)
+    for (pa, pb), (mx, my) in zip(opi.LIMB_SEQ, opi.MAP_IDX):
+        d = np.subtract(SKELETON[pb - 1], SKELETON[pa - 1]).astype(float)
+        target[[mx - 19, my - 19]] = d / np.linalg.norm(d)
+    a = 0.3 / std
+    affine(sds["body"], "Mconv7_stage6_L1", a, target - a * mean)
+    out["body"] = dict(heat_scale=[float(x) for x in (a.min(), a.max())])
+    del paf, heat, tops
+    for kind, n_out, box in (("hand", 22, size["boxsize"]),
+                             ("face", 71, size["face_boxsize"])):
+        (hm,) = opi.multiscale_maps_batch(nets[kind], imgs[:4], [n_out],
+                                          boxsize=box, scales=(1.0,))
+        flat = hm.transpose(0, 1).reshape(n_out, -1)
+        q = flat.kthvalue(int(0.999 * flat.shape[1]), dim=1).values
+        top = flat.max(1).values
+        q, top = q.double().cpu().numpy(), top.double().cpu().numpy()
+        a = 0.35 / (top - q)
+        b = 0.05 - a * q
+        a[-1], b[-1] = 1.0, 0.0                     # background
+        affine(sds[kind], "Mconv7_stage6", a, b)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for kind in sds:
+        torch.save(sds[kind], os.path.join(ckpt_dir,
+                                           f"{kind}_pose_model.pth"))
+    return out
+
+
+def _openpose_outputs(out_dir, frames):
+    """One parseable JSON per view image of each frame, read back by the
+    port's ``load_openpose``: per frame the views, people and the hand and
+    face blocks with a confident point."""
+    from bodyfitting_torch.io.openpose import load_openpose
+
+    counts = {}
+    for f in frames:
+        frame_dir = os.path.join(out_dir, SUBJECT, "%06d" % f)
+        stems = sorted(n[:-4] for n in os.listdir(os.path.join(
+            frame_dir, "images")) if n.endswith(".png"))
+        assert sorted(n[:-len("_keypoints.json")] for n in os.listdir(
+            os.path.join(frame_dir, "openpose"))) == stems, f
+        people = hands = faces = views = 0
+        for stem in stems:
+            path = os.path.join(frame_dir, "openpose",
+                                f"{stem}_keypoints.json")
+            doc = json.load(open(path))
+            assert doc["version"] == 1.3, path
+            people += len(doc["people"])
+            for person in doc["people"]:
+                assert len(person["pose_keypoints_2d"]) == 75
+                for key, n in (("hand_left_keypoints_2d", 63),
+                               ("hand_right_keypoints_2d", 63),
+                               ("face_keypoints_2d", 210)):
+                    block = np.asarray(person[key])
+                    assert block.shape == (n,) and np.isfinite(block).all()
+                    if (block[2::3] > 0).any():
+                        if key.startswith("hand"):
+                            hands += 1
+                        else:
+                            faces += 1
+            kp = load_openpose(path)
+            views += kp is not None
+        counts[f] = dict(views=len(stems), people=people,
+                         views_with_people=views, hands=hands, faces=faces)
+    return counts
+
+
+def phase_openpose(state, size=OPENPOSE_PATH, device="cuda", smi=""):
+    """Phase 11: (a) ``--tasks openpose --native_openpose`` on 2 frames x
+    48 views with seeded, calibrated checkpoints, then warm passes without
+    and with ``Stats``; (b) the body maps card vs CPU, the card's peaks and
+    people and (a)'s hand and face crop peaks vs the host path; (c) ``--tasks
+    smplify output`` on (a)'s JSONs; (d) ``fit_resumable`` on phase 3's
+    problem, stopped past the gate and resumed, against phase 3's fit."""
+    import tempfile
+
+    import torch
+
+    from bodyfitting_torch.apps import genebody as app
+    from bodyfitting_torch.fitting import checkpointing as ck
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.models import openpose as op
+    from bodyfitting_torch.models import openpose_infer as opi
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.TemporaryDirectory(prefix="bodyfit_openpose_")
+    root = tmp.name
+    tf32_before = torch.backends.cudnn.allow_tf32
+    frames = list(range(size["frames"]))
+    try:
+        torch.backends.cudnn.allow_tf32 = CUDNN_TF32_DEFAULT
+        log(f"openpose: torch.backends.cudnn.allow_tf32 = "
+            f"{torch.backends.cudnn.allow_tf32} (PyTorch's default; the "
+            f"package sets no precision flag); {smi}")
+        argv0 = ["--smpl_type", "smplx", "--subject", SUBJECT,
+                 "--load_size", str(size["load_size"]),
+                 "--synthetic_num_verts", str(size["num_verts"])]
+        model = app.load_body_model(app.config_parser().parse_args(argv0),
+                                    device=device)
+        write_genebody_subject(root, model, size, all_images=True)
+        target = os.path.join(root, "genebody")
+        argv0 += ["--target_dir", target]
+        # calibration on frame 0's crops, as the app makes them (the
+        # detector reads the PNGs it writes: BGR)
+        calib = app.Runner(app.config_parser().parse_args(
+            argv0 + ["--output_dir", os.path.join(root, "calib")]), device)
+        crops = [np.ascontiguousarray(im[..., ::-1])
+                 for im in calib.get_data(frames[0])[0]]
+        ckpt_dir = os.path.join(root, "openpose_ckpt")
+        t0 = time.perf_counter()
+        calibrate_openpose(crops, ckpt_dir, device, size)
+        log(f"openpose: seeded checkpoints calibrated on {len(crops)} crops "
+            f"of {crops[0].shape} and written in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # (a) detection through the app
+        out = os.path.join(root, "out")
+        args = app.config_parser().parse_args(argv0 + [
+            "--output_dir", out, "--tasks", "openpose", "--native_openpose",
+            "--openpose_ckpt_dir", ckpt_dir, "--timing"])
+        runner = app.Runner(args, device)
+        runner._init_native_detectors()
+        body, hand, face = runner._native_detectors
+        stats = opi.Stats()
+        body.scales, body.boxsize = size["body_scales"], size["boxsize"]
+        hand.scales = size["hand_scales"]
+        face.boxsize = size["face_boxsize"]
+        for det in (body, hand, face):
+            det.stats = stats
+        per_frame = []
+        orig = opi.detect_to_json
+        crop_peaks = opi._crop_peaks_device
+        crop_maps = {"hand": [], "face": []}
+
+        def timed_detect(*a, **kw):
+            t = time.perf_counter()
+            orig(*a, **kw)
+            per_frame.append(time.perf_counter() - t)
+
+        def keep_crop_maps(heat, n_parts, thre, stats=None):
+            # (b) holds the card's crop peaks to the host's on these maps
+            res = crop_peaks(heat, n_parts, thre, stats)
+            kept = crop_maps["hand" if n_parts == 21 else "face"]
+            if len(kept) < size["crop_checks"] and res[:, 2].any():
+                kept.append((heat, n_parts, thre))
+            return res
+        opi.detect_to_json = timed_detect
+        opi._crop_peaks_device = keep_crop_maps
+        try:
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync(device)
+            t0 = time.perf_counter()
+            runner.run()
+            sync(device)
+            wall = time.perf_counter() - t0
+        finally:
+            opi.detect_to_json = orig
+            opi._crop_peaks_device = crop_peaks
+        peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+                if on_card else "not measured")
+        counts = _openpose_outputs(out, frames)
+        timing = json.load(open(os.path.join(out, SUBJECT, "timing.json")))
+        flops = {kind: sum(n * net_flops(kind, ph, pw)
+                           for n, ph, pw in stats.inputs.get(kind, []))
+                 for kind in ("body", "hand", "face")}
+        secs = {kind: sum(v for k, v in stats.seconds.items()
+                          if k.startswith(kind + "/scale"))
+                for kind in flops}
+        det_s = float(np.mean(per_frame))
+        total_flop = sum(flops.values())
+        log(f"openpose (a): {len(frames)} frames x 48 views in {wall:.3f} s "
+            f"wall; detector {det_s:.3f} s a frame (detect_to_json, inside "
+            f"the detector lock: {', '.join(f'{x:.3f}' for x in per_frame)}"
+            f"); timing.json prep/openpose {json.dumps(timing.get('prep/openpose'))}"
+            f" (with --prep_workers 2 a frame's stage includes its wait for "
+            f"the other frame's detection); peak device memory {peak}")
+        log(f"openpose (a) outputs per frame: {json.dumps(counts)}")
+        log(f"openpose (a) FLOP a frame: " + ", ".join(
+            f"{k} {flops[k] / len(frames) / 1e12:.3f} T" for k in flops)
+            + f"; total {total_flop / len(frames) / 1e12:.3f} TFLOP a frame, "
+            f"{total_flop / len(frames) / det_s / 1e12:.1f} TFLOP/s over the "
+            f"detector's seconds")
+        for kind in flops:
+            if secs[kind] > 0:
+                log(f"openpose (a) {kind} net passes (resizes included): "
+                    f"{secs[kind]:.3f} s, {flops[kind] / secs[kind] / 1e12:.1f}"
+                    f" TFLOP/s = {flops[kind] / secs[kind] / H100_TF32_FLOPS_PER_S:.3f}"
+                    f" of the TF32 peak, "
+                    f"{flops[kind] / secs[kind] / F32_FLOPS_PER_S:.3f} of the "
+                    f"FP32 peak")
+        log("openpose (a) parts: " + "; ".join(
+            f"{k} {v * 1e3:.1f} ms / {stats.calls[k]} calls"
+            + (f" / {stats.items[k]} images" if stats.items[k] else "")
+            for k, v in sorted(stats.seconds.items())))
+        host_s = stats.seconds.get("body/assembly", 0.0) + sum(
+            v for k, v in stats.seconds.items() if k.endswith("/peaks"))
+        log(f"openpose (a) host share: body assembly "
+            f"{stats.seconds.get('body/assembly', 0.0):.3f} s + peak "
+            f"extraction with its labelling {host_s - stats.seconds.get('body/assembly', 0.0):.3f} s"
+            f" of {sum(per_frame):.3f} s detection; "
+            f"{stats.bytes_to_host / 2**20:.1f} MiB copied to the host")
+        for kind, ins in stats.inputs.items():
+            log(f"openpose (a) {kind} net inputs (batch, H, W), first 12 of "
+                f"{len(ins)}: {ins[:12]}")
+        assert all(c["views_with_people"] > 0 for c in counts.values()), counts
+        assert stats.calls.get("hand/peaks", 0) > 0, "no hand crop detected"
+        assert stats.calls.get("face/peaks", 0) > 0, "no face crop detected"
+
+        # the same detection as users run it, without Stats (whose parts
+        # drain the device at both ends), and again with Stats: warm passes
+        # of the app's _native_detect over (a)'s frames, each into a
+        # directory of its own
+        warm = {}
+        for mode in ("plain", "stats"):
+            warm_stats = opi.Stats() if mode == "stats" else None
+            for det in (body, hand, face):
+                det.stats = warm_stats
+            for f in frames:
+                frame_dir = os.path.join(out, SUBJECT, "%06d" % f)
+                sync(device)
+                t0 = time.perf_counter()
+                runner._native_detect(os.path.join(frame_dir, "images"),
+                                      os.path.join(root, mode, str(f)))
+                sync(device)
+                warm.setdefault(mode, []).append(time.perf_counter() - t0)
+        warm_host = warm_stats.seconds.get("body/assembly", 0.0) + sum(
+            v for k, v in warm_stats.seconds.items() if k.endswith("/peaks"))
+        log(f"openpose (a) warm passes: detector without Stats "
+            f"{float(np.mean(warm['plain'])):.3f} s a frame (frames "
+            f"{', '.join(f'{x:.3f}' for x in warm['plain'])}), with Stats "
+            f"{float(np.mean(warm['stats'])):.3f} s (frames "
+            f"{', '.join(f'{x:.3f}' for x in warm['stats'])}; host assembly "
+            f"and peak extraction {warm_host:.3f} s of "
+            f"{sum(warm['stats']):.3f} s)")
+
+        # the body pass at 368^2 (scale 1.0) on the frame's views, TF32 on
+        # (the default) and off
+        imgs = torch.as_tensor(np.stack(crops)).to(device)
+
+        def body_pass():
+            opi.multiscale_maps_batch(body.net, imgs, [38, 19],
+                                      boxsize=size["boxsize"], scales=(1.0,))
+        tf32 = {}
+        for flag in (True, False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            body_pass()
+            sync(device)
+            t0 = time.perf_counter()
+            body_pass()
+            sync(device)
+            tf32.setdefault(flag, []).append(time.perf_counter() - t0)
+        torch.backends.cudnn.allow_tf32 = CUDNN_TF32_DEFAULT
+        fl = len(crops) * net_flops("body", *padded_hw(
+            crops[0].shape[:2], size["boxsize"] / crops[0].shape[0]))
+        log(f"openpose: body pass at scale 1.0, {len(crops)} views: TF32 "
+            f"{[f'{x * 1e3:.1f}' for x in tf32[True]]} ms, FP32 "
+            f"{[f'{x * 1e3:.1f}' for x in tf32[False]]} ms "
+            f"({fl / min(tf32[True]) / 1e12:.1f} vs "
+            f"{fl / min(tf32[False]) / 1e12:.1f} TFLOP/s)")
+
+        # (b) card vs CPU on two views
+        two = crops[:size["cpu_views"]]
+        cpu_net = op.load_body_net(os.path.join(ckpt_dir,
+                                                "body_pose_model.pth"), "cpu")
+        cpu_maps = opi.multiscale_maps_batch(
+            cpu_net, torch.as_tensor(np.stack(two)), [38, 19],
+            boxsize=size["boxsize"], scales=(0.5,))
+        for flag, tol in ((True, size["tol_tf32"]),
+                          (False, size["tol_fp32"])):
+            torch.backends.cudnn.allow_tf32 = flag
+            card = opi.multiscale_maps_batch(
+                body.net, imgs[:len(two)], [38, 19], boxsize=size["boxsize"],
+                scales=(0.5,))
+            for name, c, r in zip(("paf_avg", "heatmap_avg"), card, cpu_maps):
+                err = float((c.cpu() - r).abs().max())
+                scale = float(r.abs().max())
+                log(f"openpose (b) {name} at scale 0.5, card (cudnn TF32 "
+                    f"{flag}) vs CPU: max abs err {err:.3e}, max relative "
+                    f"err {err / scale:.3e} of the map's largest magnitude "
+                    f"{scale:.3e} (tolerance {tol:g})")
+                assert err <= tol * scale, (name, flag, err, scale)
+        torch.backends.cudnn.allow_tf32 = CUDNN_TF32_DEFAULT
+        paf, heat = body.maps(imgs[:len(two)])
+        peaks = opi.find_peaks_batch(heat)
+        people = opi.assemble_people_batch(peaks, paf, two[0].shape[0])
+        heat_np = heat.permute(0, 2, 3, 1).cpu().numpy()
+        paf_np = paf.permute(0, 2, 3, 1).cpu().numpy()
+        for n in range(len(two)):
+            host = opi.find_peaks(heat_np[n])
+            assert peaks[n] == host, f"peaks differ on view {n}"
+            cand, subset = opi.assemble_people(host, paf_np[n],
+                                               two[0].shape[0])
+            assert np.array_equal(people[n][0], cand)
+            assert np.array_equal(people[n][1], subset)
+        log(f"openpose (b): the card's peaks and people equal the host "
+            f"path's on the card's maps ({[sum(map(len, p)) for p in peaks]}"
+            f" peaks, {[len(p[1]) for p in people]} people)")
+        # the hand and face crops' peaks: smoothing and threshold on the
+        # card against scipy's gaussian_filter on the same maps on the host
+        hits = {}
+        for kind, kept in crop_maps.items():
+            assert kept, f"no {kind} crop with a confident point in (a)"
+            hits[kind] = []
+            for heat_c, n_parts, thre in kept:
+                card = opi._crop_peaks_device(heat_c, n_parts, thre)
+                host = opi._crop_peaks_with_scores(
+                    heat_c.permute(1, 2, 0).cpu().numpy(), n_parts, thre)
+                assert np.array_equal(card, host), \
+                    f"{kind} crop peaks differ on {tuple(heat_c.shape)}"
+                hits[kind].append((tuple(heat_c.shape[1:]),
+                                   int((host[:, 2] > 0).sum())))
+        log(f"openpose (b): the card's hand and face crop peaks equal the "
+            f"host's (scipy) on (a)'s crop maps ((H, W), parts found): "
+            f"{json.dumps(hits)}")
+        torch.backends.cudnn.allow_tf32 = tf32_before
+
+        # (c) the fit on (a)'s JSONs
+        wall_c, _, _ = run_app(argv0 + [
+            "--output_dir", out, "--tasks", "smplify", "output",
+            "--num_iters", str(size["fit_iters"])], device)
+        params, trace, _ = read_app_outputs(out, frames)
+        for f, tr in trace.items():
+            assert np.isfinite(tr).all(), f
+        log(f"openpose (c): --tasks smplify output, {size['fit_iters']} "
+            f"iterations on (a)'s JSONs: {wall_c:.3f} s wall; loss "
+            + ", ".join(f"frame {f} {tr[0]:.1f} -> {tr[-1]:.1f}"
+                        for f, tr in sorted(trace.items())))
+
+        # (d) fit_resumable on phase 3's problem
+        config, chunk = state["config"], size["chunk"]
+        gate = config.num_iters // config.stage_gate_den
+        stop = (gate // chunk + 1) * chunk          # a chunk past the gate
+        path = os.path.join(root, "fit.ckpt")
+        make = smplify.make_step_fn
+
+        class Stopped(Exception):
+            pass
+
+        def stopping(*a, **kw):
+            step_fn = make(*a, **kw)
+
+            def step(i):
+                if i == stop:
+                    raise Stopped
+                return step_fn(i)
+            return step
+        ck.smplify.make_step_fn = stopping
+        first = None
+        try:
+            t0 = time.perf_counter()
+            ck.fit_resumable(state["model"], config, state["obs"],
+                             state["init"], state["prior"], path, chunk)
+        except Stopped:
+            first = time.perf_counter() - t0
+        finally:
+            ck.smplify.make_step_fn = make
+        assert torch.load(path, weights_only=True)["step"] == stop
+        t0 = time.perf_counter()
+        params, _, losses = ck.fit_resumable(
+            state["model"], config, state["obs"], state["init"],
+            state["prior"], path, chunk)
+        sync(device)
+        second = time.perf_counter() - t0
+        assert np.array_equal(losses.cpu().numpy(), state["losses"]), \
+            "resumed loss trace differs from the unbroken fit's"
+        for a, b in zip(params.tensors(), state["params"].tensors()):
+            assert torch.equal(a, b), "resumed parameters differ"
+        # the final checkpoint read back onto the card, and written again
+        template = ck.FitCheckpoint(
+            params=params.tensors(), opt_state=dict(
+                mu=params.tensors(), nu=params.tensors(), count=0), step=0)
+        sync(device)
+        t0 = time.perf_counter()
+        saved = ck.load_checkpoint(path, template)
+        sync(device)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ck.save_checkpoint(os.path.join(root, "again.ckpt"), saved)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        log(f"openpose (d): fit_resumable in chunks of {chunk}, stopped at "
+            f"step {stop} (gate {gate}) after {first:.3f} s and resumed by "
+            f"a fresh call ({second:.3f} s): parameters and loss trace "
+            f"bitwise equal to phase 3's unbroken fit (sha1 "
+            f"{state['digest']}); checkpoint {os.path.getsize(path)} bytes, "
+            f"save {save_ms:.2f} ms, load {load_ms:.2f} ms")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+        tmp.cleanup()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2904,6 +3454,7 @@ def main():
     app = phase_app(smi=smi)
     table.extend(skin_rows(app))
     rp = phase_rp_app(smi=smi)
+    phase_openpose(state, smi=smi)
     for row in table:
         row["launches_rp_app"] = {k: r["counts"][row["name"]]
                                   for k, r in rp["runs"].items()}

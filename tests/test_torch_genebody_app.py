@@ -261,9 +261,8 @@ def test_app_runs_hmr_on_the_keyframe(dataset, tmp_path):
 
 
 def test_unported_options_raise(dataset, tmp_path, monkeypatch):
-    for flag in ("--data_parallel", "--native_openpose"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            papp.main(_argv(dataset, tmp_path, [flag]), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        papp.main(_argv(dataset, tmp_path, ["--data_parallel"]), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         papp.main(_argv(dataset, tmp_path, []))
@@ -359,3 +358,102 @@ def test_temporal_loss_matches_jax():
             pparams, pseq.TemporalConfig(acceleration_weight=3.0),
             None if fv is None else torch.tensor(fv)))
         assert abs(got - ref) <= 1e-5 * abs(ref)
+
+
+def _detector_stubs(opi):
+    """Synthetic-field stand-ins for ``opi``'s detector classes: every
+    view shows one skeleton whose hand and face boxes lie inside a 128²
+    crop (``test_torch_openpose.py``'s fields), and the hand and face nets
+    give fixed peaks in the crop, scores 0.6-0.9."""
+    from tests.test_torch_openpose import _skeleton, _synthetic_fields
+
+    heat, paf = _synthetic_fields([_skeleton(64, 70, s=1.2)])
+
+    class Body:
+        def __init__(self, checkpoint_path=None, **kw):
+            pass
+
+        def __call__(self, img):
+            assert img.shape == (128, 128, 3)
+            return opi.assemble_people(opi.find_peaks(heat, thre1=0.3), paf,
+                                       img_h=128)
+
+    class Crop:
+        n = 0
+
+        def __init__(self, checkpoint_path=None, **kw):
+            pass
+
+        def __call__(self, crop, thre=0.05):
+            k = np.arange(self.n)
+            return np.stack([(k * 7) % crop.shape[1], (k * 5) % crop.shape[0],
+                             0.6 + 0.1 * (k % 4)], 1).astype(np.float32)
+
+    class Hand(Crop):
+        n = 21
+
+    class Face(Crop):
+        n = 70
+
+    return Body, Hand, Face
+
+
+def test_native_openpose_matches_jax_app(dataset, tmp_path, monkeypatch):
+    """``--tasks openpose smplify output --native_openpose`` (SMPL-X: body,
+    hands and face) through both apps with the stubbed detectors: the
+    same JSONs, and the fits agree as in the other app tests."""
+    from bodyfitting_tpu.apps import genebody as japp
+    from bodyfitting_tpu.models import openpose_infer as jopi
+    from bodyfitting_torch.models import openpose_infer as popi
+
+    for opi in (jopi, popi):
+        body, hand, face = _detector_stubs(opi)
+        monkeypatch.setattr(opi, "BodyDetector", body)
+        monkeypatch.setattr(opi, "HandDetector", hand)
+        monkeypatch.setattr(opi, "FaceDetector", face)
+    argv = _argv(dataset, tmp_path, ["--smpl_type", "smplx",
+                                     "--native_openpose"])
+    argv[argv.index("--load_size") + 1] = "128"
+    outs = {}
+    for name in ("jax", "port"):
+        out = tmp_path / name
+        run = argv[:]
+        run[run.index("--output_dir") + 1] = str(out)
+        if name == "port":
+            papp.main(run, device="cpu")
+        else:
+            japp.Runner(japp.config_parser().parse_args(run)).run()
+        outs[name] = _outputs(out)
+    for fr in range(N_FRAMES):
+        for v in range(N_VIEWS):
+            rel = os.path.join(SUBJECT, "%06d" % fr, "openpose",
+                               "%02d_keypoints.json" % v)
+            ref = json.load(open(tmp_path / "jax" / rel))
+            got = json.load(open(tmp_path / "port" / rel))
+            assert got == ref
+            person = got["people"][0]
+            assert [len(person[k]) for k in (
+                "pose_keypoints_2d", "hand_left_keypoints_2d",
+                "hand_right_keypoints_2d", "face_keypoints_2d")] == \
+                [75, 63, 63, 210]
+            assert min(np.asarray(person[k])[2::3].max() for k in (
+                "hand_left_keypoints_2d", "hand_right_keypoints_2d",
+                "face_keypoints_2d")) > 0.5
+    (jp, jo, jt), (pp, po, pt) = outs["jax"], outs["port"]
+    for a, b in zip(jp, pp):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=1e-5,
+                                       err_msg=k)
+    for a, b in zip(jt, pt):
+        np.testing.assert_allclose(b["losses"], a["losses"], rtol=1e-5)
+
+
+def test_native_openpose_missing_checkpoint_raises(dataset, tmp_path):
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    argv = _argv(dataset, tmp_path / "out", [
+        "--native_openpose", "--openpose_ckpt_dir", str(ckpt),
+        "--prep_workers", "0"])
+    with pytest.raises(FileNotFoundError, match="body_pose_model.pth"):
+        papp.main(argv, device="cpu")

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on the GPU unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX, Flax, OpenCV nor the JAX
+package, and its entry points run on the GPU unless the caller asks for
+the CPU."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "bodyfitting_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "bodyfitting_tpu")
 
 
 def _port_sources():
@@ -54,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
         "texture\n"
         "from bodyfitting_torch.losses import keypoints, mesh, priors, "
         "silhouette\n"
-        "from bodyfitting_torch.models import hmr, inpaint\n"
+        "from bodyfitting_torch.models import hmr, inpaint, openpose, "
+        "openpose_infer\n"
+        "from bodyfitting_torch.fitting import checkpointing\n"
         "from bodyfitting_torch.ops import kernels, nearest, rasterize, sdf\n"
         "from bodyfitting_torch.ops.kernels import skinning\n"
         "from bodyfitting_torch.utils import observability, uv_unwrap\n"
@@ -63,7 +66,8 @@ def test_importing_the_port_loads_no_jax():
         "from bodyfitting_torch.io import cameras, images, jpeg, obj, "
         "openpose, params, png, scan_prep\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'bodyfitting_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',\n"
+        "                               'bodyfitting_tpu')]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -125,6 +129,13 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
 
     rp_args = rp.config_parser().parse_args([])
     calls += [lambda: rp.Runner(rp_args), lambda: rp.main([])]
+    # the native OpenPose detector
+    from bodyfitting_torch.models import openpose as op
+    from bodyfitting_torch.models import openpose_infer as opi
+
+    calls += [lambda: op.load_body_net(), lambda: op.load_hand_net(),
+              lambda: op.load_face_net(), lambda: opi.BodyDetector(),
+              lambda: opi.HandDetector(), lambda: opi.FaceDetector()]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -23,6 +23,10 @@ FACE_MAPPING = np.array(
 
 SMPLX_NUM_VERTS = 10475
 
+# HMR's crop: the input side and the virtual focal length of its camera
+IMG_RES = 224
+FOCAL_LENGTH = 5000.0
+
 # ImageNet normalisation of the HMR input
 IMG_NORM_MEAN = (0.485, 0.456, 0.406)
 IMG_NORM_STD = (0.229, 0.224, 0.225)

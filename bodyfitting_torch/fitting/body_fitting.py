@@ -294,7 +294,12 @@ def fit_frames_batched(
     """Concatenate per-frame observations and initial parameters along the
     frame axis and fit them all at once on the model's device.
 
-    Returns ``(FitParams, result dict, losses [B, num_iters])``.
+    Scan fits batch too: each frame keeps its own scan, height, constant
+    scale and distance volume, as the JAX package's ``vmap`` of the fit
+    does; the scans (and volumes) must share one shape, or
+    :func:`smplify.concat_frames` raises.  Returns ``(FitParams, result
+    dict, losses [B, num_iters])`` (``[B, 2 num_iters]`` and
+    ``result["displacement"] [B, V, 3]`` with the SMPL+D stage).
     """
     obs = smplify.concat_frames(list(obs_list))
     init = smplify.concat_frames(list(init_list))

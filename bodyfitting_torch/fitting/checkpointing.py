@@ -136,10 +136,10 @@ def fit_resumable(model: bm.BodyModel, config: smplify.FitConfig,
     included.  A scan fit with ``config.displacement`` runs the SMPL+D
     stage too, chunked the same way and saved at ``checkpoint_path +
     '.disp'``.  Returns ``(params, result dict, losses [B, num_iters])``
-    as :func:`smplify.fit` does (``[1, 2 num_iters]`` with the
+    as :func:`smplify.fit` does (``[B, 2 num_iters]`` with the
     displacement stage); ``init`` is not modified."""
     if config.use_mesh:
-        smplify.scan_of(obs)                # one frame with a scan
+        smplify.scan_frames(obs)            # every frame has a scan
     params = smplify.FitParams.from_tensors([t.detach().clone()
                                              for t in init.tensors()])
     opt = smplify.make_optimizer(config, params)
@@ -152,12 +152,12 @@ def fit_resumable(model: bm.BodyModel, config: smplify.FitConfig,
         result = smplify.fit_result(model, params, obs)
     if config.displacement and config.use_mesh:
         disp_loss, dopt, disp = smplify.displacement_problem(
-            model, config, obs, result["vertices"][0].detach())
+            model, config, obs, result["vertices"].detach())
 
         def disp_step(_step):
             disp.requires_grad_(True)
             loss = disp_loss(disp)
-            (grad,) = torch.autograd.grad(loss, [disp])
+            (grad,) = torch.autograd.grad(loss.sum(), [disp])
             disp.requires_grad_(False)
             dopt.step([grad])
             return loss.detach()
@@ -165,7 +165,7 @@ def fit_resumable(model: bm.BodyModel, config: smplify.FitConfig,
         disp_losses = _run_chunked(
             disp_step, dopt, config.num_iters, chunk_size,
             checkpoint_path + ".disp" if checkpoint_path else None)
-        result["displacement"] = disp[None]
+        result["displacement"] = disp
         losses = torch.cat([losses, torch.as_tensor(
-            disp_losses, device=dev)[None]], dim=1)
+            disp_losses, device=dev).T], dim=1)
     return params, result, losses

@@ -20,8 +20,9 @@ Behaviours kept from the JAX package:
   * scan fits (``use_mesh``) add the point-to-scan term after the gate,
     through the distance volume (``mesh_loss_impl="sdf"``) or the exact
     nearest-point query (``"exact"``), and with ``displacement`` run the
-    SMPL+D stage after the body fit.  A scan fit takes one frame (B=1),
-    as the RenderPeople app fits one scan at a time.
+    SMPL+D stage after the body fit.  Each frame of a batch has its own
+    scan, height, constant scale and distance volume (the JAX package's
+    ``vmap`` of the one-scan fit); the scans of a batch have one shape.
 """
 
 from __future__ import annotations
@@ -157,9 +158,9 @@ class FitParams:
 class Observations:
     """Observed data with a leading frame axis ``B`` (pad views as needed).
 
-    The scan fields (``use_mesh``) carry the frame axis too; a scan fit
-    takes one frame.  ``scan_volume`` is an :class:`ops.sdf.DistanceVolume`
-    whose fields have the frame axis.
+    The scan fields (``use_mesh``) carry the frame axis too, one scan a
+    frame.  ``scan_volume`` is an :class:`ops.sdf.DistanceVolume` whose
+    fields have the frame axis.
     """
 
     w2cs: torch.Tensor                     # [B, Vw, 4, 4]
@@ -184,7 +185,10 @@ class Observations:
 
 def concat_frames(items):
     """Concatenate dataclasses of ``[1, ...]`` (or ``[b, ...]``) tensors
-    along the frame axis; None fields must be None in every item."""
+    along the frame axis; None fields must be None in every item, and a
+    field must have one shape past the frame axis in every item (a batch
+    of scans is a batch of equal-shape scans, as ``jnp.stack`` needs in
+    the JAX package): anything else raises ``ValueError`` naming it."""
     first = items[0]
     fields = {}
     for f in dataclasses.fields(first):
@@ -196,6 +200,12 @@ def concat_frames(items):
                 raise ValueError(f"field {f.name} is None in some frames only")
             fields[f.name] = None
         else:
+            shapes = sorted({tuple(v.shape[1:]) for v in vals})
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"frames of different shapes cannot be batched: field "
+                    f"{f.name} has shapes {shapes} past the frame axis (pad "
+                    f"them to one shape, or fit them apart)")
             fields[f.name] = torch.cat(vals, dim=0)
     return type(first)(**fields)
 
@@ -334,13 +344,16 @@ def fit_loss(
                 full_hw=(int(config.imsize), int(config.imsize)),
             )
         if config.use_mesh:
-            scan_verts, scan_faces, height, volume = scan_of(obs)
-            if config.mesh_loss_impl == "sdf" and volume is not None:
-                pc = sdf.point_cloud_loss_sdf(verts[0], volume)
-            else:
-                pc = point_cloud_loss(verts[0], scan_verts, scan_faces)
-            # reference: / scan_height * imsize (smplify.py:206)
-            pc_l = (pc / height * config.imsize).reshape(1)
+            pcs = []
+            for b, (scan_verts, scan_faces, height, volume) in enumerate(
+                    scan_frames(obs)):
+                if config.mesh_loss_impl == "sdf" and volume is not None:
+                    pc = sdf.point_cloud_loss_sdf(verts[b], volume)
+                else:
+                    pc = point_cloud_loss(verts[b], scan_verts, scan_faces)
+                # reference: / scan_height * imsize (smplify.py:206)
+                pcs.append(pc / height * config.imsize)
+            pc_l = torch.stack(pcs)
     if config.use_mask:
         total = total + config.mask_weight * mask_l
         terms["mask_loss"] = mask_l
@@ -350,22 +363,24 @@ def fit_loss(
     return total, terms
 
 
-def scan_of(obs: Observations):
-    """``(scan_verts, scan_faces, scan_height, scan_volume)`` of a
-    one-frame scan fit, without the frame axis; the volume is None when
-    the observations carry none.  Batches of scans raise."""
+def scan_frames(obs: Observations) -> list:
+    """Each frame's ``(scan_verts, scan_faces, scan_height, scan_volume)``
+    without the frame axis; the volume is None when the observations
+    carry none.  Observations without a scan raise."""
     if obs.scan_verts is None:
         raise ValueError("use_mesh needs observations with a scan (pass "
                          "scan_verts and scan_faces to build_observations)")
-    if obs.scan_verts.shape[0] != 1:
-        raise NotImplementedError(
-            f"a scan fit takes one frame; got a batch of "
-            f"{obs.scan_verts.shape[0]} scans")
     vol = obs.scan_volume
-    if vol is not None:
-        vol = sdf.DistanceVolume(dist=vol.dist[0], face_idx=vol.face_idx[0],
-                                 origin=vol.origin[0], spacing=vol.spacing[0])
-    return obs.scan_verts[0], obs.scan_faces[0], obs.scan_height[0], vol
+    out = []
+    for b in range(obs.scan_verts.shape[0]):
+        vb = None
+        if vol is not None:
+            vb = sdf.DistanceVolume(dist=vol.dist[b], face_idx=vol.face_idx[b],
+                                    origin=vol.origin[b],
+                                    spacing=vol.spacing[b])
+        out.append((obs.scan_verts[b], obs.scan_faces[b], obs.scan_height[b],
+                    vb))
+    return out
 
 
 def loss_models(model: bm.BodyModel, config: FitConfig):
@@ -438,12 +453,12 @@ def fit(model: bm.BodyModel, config: FitConfig, obs: Observations,
     Returns ``(final FitParams, result dict, losses [B, num_iters])``;
     ``init`` is not modified.  Runs where ``model``'s tensors are.  A
     scan fit with ``displacement`` then runs the SMPL+D stage on the
-    detached body vertices: ``result["displacement"]`` is ``[1, V, 3]``
-    and the losses are ``[1, 2 num_iters]``, the body trace followed by
+    detached body vertices: ``result["displacement"]`` is ``[B, V, 3]``
+    and the losses are ``[B, 2 num_iters]``, the body trace followed by
     the displacement trace.
     """
     if config.use_mesh:
-        scan_of(obs)                        # one frame with a scan
+        scan_frames(obs)                    # every frame has a scan
     params = FitParams.from_tensors([t.detach().clone()
                                      for t in init.tensors()])
     opt = make_optimizer(config, params)
@@ -454,9 +469,9 @@ def fit(model: bm.BodyModel, config: FitConfig, obs: Observations,
     losses = torch.stack(losses, dim=1)
     if config.displacement and config.use_mesh:
         disp, disp_losses = fit_displacement(
-            model, config, obs, result["vertices"][0].detach())
-        result["displacement"] = disp[None]
-        losses = torch.cat([losses, disp_losses[None]], dim=1)
+            model, config, obs, result["vertices"].detach())
+        result["displacement"] = disp
+        losses = torch.cat([losses, disp_losses], dim=1)
     return params, result, losses
 
 
@@ -479,39 +494,44 @@ def fit_result(model, params: FitParams, obs: Observations) -> dict:
 
 def fit_displacement(model: bm.BodyModel, config: FitConfig,
                      obs: Observations, body_vertices: torch.Tensor):
-    """Stage 2, SMPL+D: per-vertex displacements of the fitted body
-    ``[V, 3]`` fitted to the scan.  Returns ``(displacement [V, 3],
-    losses [num_iters])``, each loss taken before its step's update."""
+    """Stage 2, SMPL+D: per-vertex displacements of the fitted bodies
+    ``[B, V, 3]``, each fitted to its frame's scan.  Returns
+    ``(displacement [B, V, 3], losses [B, num_iters])``, each loss taken
+    before its step's update."""
     disp_loss, opt, disp = displacement_problem(model, config, obs,
                                                 body_vertices)
     losses = []
     for _ in range(config.num_iters):
         disp.requires_grad_(True)
         loss = disp_loss(disp)
-        (grad,) = torch.autograd.grad(loss, [disp])
+        (grad,) = torch.autograd.grad(loss.sum(), [disp])
         disp.requires_grad_(False)
         opt.step([grad])
         losses.append(loss.detach())
-    return disp, torch.stack(losses)
+    return disp, torch.stack(losses, dim=1)
 
 
 def displacement_problem(model: bm.BodyModel, config: FitConfig,
                          obs: Observations, body_vertices: torch.Tensor):
-    """The displacement stage as ``(loss_fn, optimizer, init)``: the
-    point-to-scan, normal and normal-smoothness terms on ``body_vertices
-    + disp``, and Adam at ``disp_lr`` (``optax.adam``: ``scale_by_adam``,
-    eps 1e-8, then ``-lr``) over a displacement that starts at zero and
-    is updated in place."""
+    """The displacement stage as ``(loss_fn, optimizer, init)``: for each
+    frame ``b``, the point-to-scan, normal and normal-smoothness terms on
+    ``body_vertices[b] + disp[b]`` against frame ``b``'s scan
+    (``loss_fn(disp [B, V, 3])`` gives ``[B]``), and Adam at ``disp_lr``
+    (``optax.adam``: ``scale_by_adam``, eps 1e-8, then ``-lr``) over a
+    displacement ``[B, V, 3]`` that starts at zero and is updated in
+    place.  Adam is elementwise, so the batch's frames step as apart."""
     faces = model.faces
-    scan_verts, scan_faces, _, volume = scan_of(obs)
-    scan_face_normals = compute_face_normals(scan_verts, scan_faces)
-    use_sdf = config.mesh_loss_impl == "sdf" and volume is not None
-    constant_scale = obs.constant_scale[0]
+    use_sdf = config.mesh_loss_impl == "sdf"
+    scans = []
+    for b, (scan_verts, scan_faces, _, volume) in enumerate(scan_frames(obs)):
+        scans.append((scan_verts, scan_faces, volume,
+                      compute_face_normals(scan_verts, scan_faces),
+                      obs.constant_scale[b]))
 
-    def disp_loss(disp):
-        deformed = body_vertices + disp
+    def frame_loss(deformed, scan):
+        scan_verts, scan_faces, volume, scan_face_normals, cscale = scan
         deformed_norms = compute_vertex_normals(deformed, faces)
-        if use_sdf:
+        if use_sdf and volume is not None:
             icp = sdf.point_cloud_loss_sdf(deformed, volume)
             nl = sdf.normal_loss_sdf(deformed, deformed_norms, volume,
                                      scan_face_normals)
@@ -524,7 +544,11 @@ def displacement_problem(model: bm.BodyModel, config: FitConfig,
             nl = normal_loss(deformed, deformed_norms, scan_verts,
                              scan_faces, scan_face_normals, nearest=near)
         sm = normal_laplacian_smoothness(deformed_norms, faces)
-        return icp + (nl + sm) * constant_scale * 0.1
+        return icp + (nl + sm) * cscale * 0.1
+
+    def disp_loss(disp):
+        return torch.stack([frame_loss(body_vertices[b] + disp[b], scan)
+                            for b, scan in enumerate(scans)])
 
     disp0 = torch.zeros_like(body_vertices)
     opt = Adam([disp0], [config.disp_lr], config.adam_b1, config.adam_b2)

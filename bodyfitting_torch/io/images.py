@@ -178,6 +178,61 @@ def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     return np.clip((s0 + s1 + 2) >> 2, 0, 255).astype(np.uint8)
 
 
+def resize_linear_f32(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=INTER_LINEAR)`` of a
+    float32 image, as OpenCV's build with IPP computes it: a horizontal
+    then a vertical pass, each ``fma(s1 - s0, f, s0)`` in float32 with the
+    fraction ``f`` of :func:`_linear_taps_f64`.  The product is exact in
+    float64; the sum is rounded there and then to float32, which can
+    differ from a fused rounding in the last bit (on integer-valued
+    images, a uint8 crop's canvas, the tests find no difference); the
+    same size is a copy."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    if w == out_w and h == out_h:
+        return img.copy()
+    x0, x1, fx = _linear_taps_f64(w, out_w, True)
+    y0, y1, fy = _linear_taps_f64(h, out_h, False)
+    hshape = (1, -1) + (1,) * (img.ndim - 2)
+    vshape = (-1, 1) + (1,) * (img.ndim - 2)
+    hz = _lerp_f32(img[:, x0], img[:, x1], fx.reshape(hshape))
+    return _lerp_f32(hz[y0], hz[y1], fy.reshape(vshape))
+
+
+def _lerp_f32(a, b, t):
+    """``fma(b - a, t, a)`` in float32 (the difference rounded to float32
+    first)."""
+    d = (b - a).astype(np.float32).astype(np.float64)
+    return (a.astype(np.float64) + d * t.astype(np.float64)).astype(
+        np.float32)
+
+
+def _linear_taps_f64(src: int, dst: int, clamp_weights: bool):
+    """The float path's taps: as :func:`_linear_taps`, but the position
+    and its fraction in float64, the fraction rounded to float32 last."""
+    scale = 1.0 / (dst / src)
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    s = np.floor(f).astype(np.int64)
+    f = f - s
+    if clamp_weights:
+        low = s < 0
+        f[low], s[low] = 0.0, 0
+        high = s >= src - 1
+        f[high], s[high] = 0.0, src - 1
+    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+            f.astype(np.float32))
+
+
+def resize_nearest(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=INTER_NEAREST)``:
+    output pixel ``x`` reads source pixel ``floor(x * src / dst)``
+    (OpenCV's reciprocal of the scale, in float64), clamped."""
+    h, w = img.shape[:2]
+    sx = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / w))), w - 1)
+    sy = np.minimum(np.floor(np.arange(out_h) * (1.0 / (out_h / h))), h - 1)
+    return img[sy.astype(np.int64)][:, sx.astype(np.int64)]
+
+
 def crop_and_resize(img: np.ndarray, bbox: tuple[int, int, int, int],
                     out_size: int) -> np.ndarray:
     """Crop to the bbox and resize to ``out_size`` square with

@@ -2,8 +2,8 @@
 
 Counterpart of ``bodyfitting_tpu/losses/mesh.py`` (the reference's
 scan losses and its differentiable vertex normals), with the nearest
-point on the scan from :mod:`bodyfitting_torch.ops.nearest`.
-``chamfer_loss`` has no caller on the ported path and waits.
+point on the scan from :mod:`bodyfitting_torch.ops.nearest`, and the
+subsampled chamfer distance.
 """
 
 from __future__ import annotations
@@ -88,3 +88,40 @@ def normal_laplacian_smoothness(normals: torch.Tensor,
         return ((x - y) ** 2).sum(-1)
 
     return (mse(na, nb) + mse(nc, na) + mse(nb, nc)).mean()
+
+
+def chamfer_from_samples(src: torch.Tensor, tar: torch.Tensor) -> torch.Tensor:
+    """Symmetric chamfer distance of two sampled clouds ``[S, 3]``: the
+    mean over samples of the squared distance to the other cloud's nearest
+    sample, both ways."""
+    d2 = ((src[:, None] - tar[None]) ** 2).sum(-1)
+    return (d2.min(dim=0).values + d2.min(dim=1).values).mean()
+
+
+def chamfer_sample_indices(n_src: int, n_tar: int, samples: int = 500,
+                           generator: torch.Generator = None, device=None):
+    """The sample indices of :func:`chamfer_loss`, each cloud drawn from
+    its own length (the JAX package's fix of the reference, which drew
+    the target's from the source's length), uniformly with replacement
+    from ``generator``."""
+    si = torch.randint(0, n_src, (samples,), generator=generator,
+                       device=device)
+    ti = torch.randint(0, n_tar, (samples,), generator=generator,
+                       device=device)
+    return si, ti
+
+
+def chamfer_loss(pts_src: torch.Tensor, pts_tar: torch.Tensor,
+                 generator: torch.Generator = None,
+                 samples: int = 500) -> torch.Tensor:
+    """Subsampled symmetric chamfer distance: ``samples`` points of each
+    cloud (``[..., 3]``, flattened) drawn by
+    :func:`chamfer_sample_indices` from ``generator`` (it lives on the
+    clouds' device), then :func:`chamfer_from_samples`.  The draws cannot
+    reproduce ``jax.random``; given the same indices the value and its
+    gradient are the JAX function's."""
+    src = pts_src.reshape(-1, 3)
+    tar = pts_tar.reshape(-1, 3)
+    si, ti = chamfer_sample_indices(src.shape[0], tar.shape[0], samples,
+                                    generator, device=src.device)
+    return chamfer_from_samples(src[si], tar[ti])

@@ -117,17 +117,21 @@ def seeded_state_dict(seed: int = 0, layers=(3, 4, 6, 3)) -> dict:
 def load_state_dict_checked(net: HMR, state_dict: dict) -> None:
     """Load the reference checkpoint (or a SPIN wrapper with a ``model``
     key) into ``net``: every tensor of the network must be present with
-    its shape; keys the network has no use for are ignored, as the
-    reference's non-strict load does."""
+    its shape (``tools.manifests.expected_hmr_state_dict``; a
+    ``ValueError`` names each missing or mis-shaped key); keys the
+    network has no use for are ignored, as the reference's non-strict
+    load does."""
+    from bodyfitting_torch.tools import manifests
+
     if "model" in state_dict and isinstance(state_dict["model"], dict):
         state_dict = state_dict["model"]
+    required, optional = manifests.expected_hmr_state_dict(net)
+    manifests.verify_or_raise(state_dict, required, optional,
+                              "HMR checkpoint")
+    keys = set(net.state_dict())
     sd = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
-          for k, v in state_dict.items()}
-    missing, _ = net.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing:
-        raise ValueError(f"HMR checkpoint lacks {len(missing)} tensors: "
-                         f"{missing[:8]}")
+          for k, v in state_dict.items() if k in keys}
+    net.load_state_dict(sd, strict=False)
 
 
 def hmr_forward(net: HMR, images: torch.Tensor, mean_params=None):

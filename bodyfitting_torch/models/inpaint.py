@@ -215,24 +215,33 @@ class Inpainter:
     """The reference-compatible wrapper: fills masked regions of a uint8
     image and composites with the unmasked input (numpy HWC in and out).
 
-    Weights: ``checkpoint_path`` (a released ``.pth`` state dict, loaded
-    strict), else ``state_dict`` (arrays or tensors by key), else
-    :func:`seeded_state_dict` of ``seed``.
+    Weights: ``checkpoint_path`` (a released ``.pth`` state dict), else
+    ``state_dict`` (arrays or tensors by key), else
+    :func:`seeded_state_dict` of ``seed``.  Every key of the network must
+    be present with its shape (``tools.manifests``; a ``ValueError``
+    names each missing or mis-shaped key); extra keys are ignored, as
+    the JAX package's converter ignores them.
     """
 
     def __init__(self, checkpoint_path: Optional[str] = None,
                  state_dict: Optional[dict] = None, seed: int = 0,
                  device=None):
+        from bodyfitting_torch.tools import manifests
+
         self.device = default_device(device)
+        what = "LBAM state dict"
         if checkpoint_path is not None:
             state_dict = torch.load(checkpoint_path, map_location="cpu",
                                     weights_only=True)
+            what = f"LBAM checkpoint {checkpoint_path}"
         elif state_dict is None:
             state_dict = seeded_state_dict(seed)
+        self.model = LBAM()
+        required, optional = manifests.expected_lbam_state_dict(self.model)
+        manifests.verify_or_raise(state_dict, required, optional, what)
         sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                  else v, dtype=torch.float32)
-              for k, v in state_dict.items()}
-        self.model = LBAM()
+              for k, v in state_dict.items() if k in required}
         self.model.load_state_dict(sd, strict=True)
         self.model.to(self.device).eval()
 

@@ -7,7 +7,7 @@ network.  Parameters are named by the released files' flat layer names
 (``conv1_1.weight``, ``Mconv7_stage6_L2.bias``, ...), so a released
 ``body_pose_model.pth`` / ``hand_pose_model.pth`` / ``face_pose_model.pth``
 (or one saved with a block prefix such as ``model0.``) loads with
-``load_state_dict`` after :func:`normalize_openpose_keys`.
+``load_state_dict`` after ``tools.manifests.normalize_openpose_keys``.
 
 Inputs are NCHW ``[B, 3, H, W]`` images scaled as ``x / 256 - 0.5``;
 the convolutions are ``torch.nn.functional.conv2d`` (cuDNN on the card),
@@ -15,8 +15,8 @@ as the JAX package runs ``lax.conv``.  The package sets no precision
 flag: PyTorch's ``torch.backends.cudnn.allow_tf32`` decides whether the
 card runs them on TF32 tensor cores.
 
-The key/shape check before a load is this package's own copy of the JAX
-package's ``tools/manifests.py`` OpenPose functions.
+A file's keys and shapes are checked before a load by
+``tools/manifests.py``.
 """
 
 from __future__ import annotations
@@ -24,12 +24,12 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from bodyfitting_torch.device import default_device
+from bodyfitting_torch.tools import manifests
 
 _VGG_BODY = [
     ("conv1_1", 64, 3), ("conv1_2", 64, 3), ("pool",),
@@ -191,104 +191,40 @@ def net_structure(kind: str) -> nn.Module:
 
 
 # ---------------------------------------------------------------------------
-# The key/shape check (the JAX package's tools/manifests.py, for OpenPose)
-# ---------------------------------------------------------------------------
-
-
-def expected_openpose_state_dict(net: nn.Module):
-    """The key -> shape table of a released file in its flat layer-name
-    form, from the network's own parameters."""
-    return {k: tuple(v.shape) for k, v in net.state_dict().items()}
-
-
-def normalize_openpose_keys(state_dict: dict) -> dict:
-    """Keys cut down to ``<layer>.<leaf>``: the released files are flat
-    already; re-prefixed saves (``model0.conv1_1.weight``) become the same
-    form."""
-    return {".".join(k.split(".")[-2:]): v for k, v in state_dict.items()}
-
-
-def _shape_of(v):
-    if torch.is_tensor(v):
-        return tuple(v.shape)
-    return tuple(np.asarray(v).shape)
-
-
-def check_state_dict(state_dict, required):
-    """A state dict's keys and shapes against a manifest: ``ok``,
-    ``missing`` (key -> shape), ``mismatched`` (key -> (expected,
-    actual)), ``extra`` (present, not in the manifest; ignored),
-    ``n_required``, ``n_present``."""
-    shapes = {k: _shape_of(v) for k, v in state_dict.items()}
-    missing = {k: s for k, s in required.items() if k not in shapes}
-    mismatched = {}
-    for k, exp in required.items():
-        if k in shapes and shapes[k] != tuple(exp):
-            mismatched[k] = (tuple(exp), shapes[k])
-    extra = sorted(k for k in shapes if k not in required)
-    return {
-        "ok": not missing and not mismatched,
-        "missing": missing,
-        "mismatched": mismatched,
-        "extra": extra,
-        "n_required": len(required),
-        "n_present": len(required) - len(missing),
-    }
-
-
-def describe_report(report, what):
-    """A failed (or passed) check as readable lines."""
-    lines = [f"{what}: {report['n_present']}/{report['n_required']} "
-             f"required tensors present"]
-    for k, s in list(report["missing"].items())[:10]:
-        lines.append(f"  missing  {k}  expected {s}")
-    if len(report["missing"]) > 10:
-        lines.append(f"  ... and {len(report['missing']) - 10} more missing")
-    for k, (e, a) in list(report["mismatched"].items())[:10]:
-        lines.append(f"  shape    {k}  expected {e}, got {a}")
-    if len(report["mismatched"]) > 10:
-        lines.append(
-            f"  ... and {len(report['mismatched']) - 10} more mismatched")
-    if report["extra"]:
-        lines.append(f"  note: {len(report['extra'])} extra keys ignored "
-                     f"(e.g. {report['extra'][:3]})")
-    return "\n".join(lines)
-
-
-def verify_or_raise(state_dict, required, what):
-    """``ValueError`` with the full report when the check fails."""
-    report = check_state_dict(state_dict, required)
-    if not report["ok"]:
-        raise ValueError("checkpoint structure does not match the published "
-                         + describe_report(report, what))
-    return report
-
-
-# ---------------------------------------------------------------------------
 # Loaders
 # ---------------------------------------------------------------------------
 
 
-def _load_net(kind: str, checkpoint_path: Optional[str], device=None,
-              seed: int = 0) -> nn.Module:
+def net_from_state_dict(kind: str, state_dict: dict, device=None,
+                        what: str = "") -> nn.Module:
+    """The ``kind`` net with the weights of a released file's state dict
+    (flat or block-prefixed keys), checked against
+    ``tools.manifests.expected_openpose_state_dict`` first (a
+    ``ValueError`` names ``what`` and each missing or mis-shaped key;
+    extra keys are ignored); on ``device`` (default ``cuda``)."""
     device = default_device(device)
     net = net_structure(kind)
-    if checkpoint_path is None:
-        sd = seeded_state_dict(kind, seed)
-    else:
-        raw = torch.load(checkpoint_path, map_location="cpu",
-                         weights_only=True)
-        sd = normalize_openpose_keys(raw)
-        required = expected_openpose_state_dict(net)
-        verify_or_raise(sd, required,
-                        f"OpenPose {kind} checkpoint {checkpoint_path}")
-        sd = {k: sd[k] for k in required}
-    net.load_state_dict(sd, assign=True)
+    sd = manifests.normalize_openpose_keys(state_dict)
+    required, optional = manifests.expected_openpose_state_dict(net)
+    manifests.verify_or_raise(sd, required, optional,
+                              what or f"OpenPose {kind} state dict")
+    net.load_state_dict({k: sd[k] for k in required}, assign=True)
     net.requires_grad_(False)
     net = net.to(device)
     if device.type == "cuda":
         net = net.to(memory_format=torch.channels_last)
     return net
+
+
+def _load_net(kind: str, checkpoint_path: Optional[str], device=None,
+              seed: int = 0) -> nn.Module:
+    device = default_device(device)
+    if checkpoint_path is None:
+        return net_from_state_dict(kind, seeded_state_dict(kind, seed),
+                                   device)
+    raw = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    return net_from_state_dict(kind, raw, device,
+                               f"OpenPose {kind} checkpoint {checkpoint_path}")
 
 
 def load_body_net(checkpoint_path: Optional[str] = None, device=None,

@@ -11,7 +11,8 @@ assignment is a constant, the barycentric post-pass is plain PyTorch
 (differentiable in the corners, as the JAX one), and the texture
 gradient of :func:`bilinear_sample_uv` is the scatter-add of its gather,
 summed in a fixed order on the card too (:class:`_Gather`).
-``soft_silhouette`` (:279, no caller on any path) is not ported.
+:func:`soft_silhouette` is the SoftRas-style coverage, differentiable in
+the vertices, in plain PyTorch (XLA in the JAX package, no kernel there).
 """
 
 from __future__ import annotations
@@ -210,3 +211,151 @@ def sample_texture(raster: RasterOut, face_uvs: torch.Tensor,
     uv_map = interpolate_uvs(raster, face_uvs)
     return sample_texture_uvmap(uv_map, raster.face_idx >= 0, texture,
                                 background)
+
+
+# ---------------------------------------------------------------------------
+# Soft (differentiable-in-vertices) silhouette
+# ---------------------------------------------------------------------------
+
+
+def _point_segment_d2(p, a, b):
+    """Squared distance point -> segment, broadcastable."""
+    ab = b - a
+    t = ((p - a) * ab).sum(-1) / torch.clamp((ab * ab).sum(-1), min=EPS)
+    t = torch.clamp(t, 0.0, 1.0)[..., None]
+    return ((p - (a + t * ab)) ** 2).sum(-1)
+
+
+def _soft_log_bg(fpx, pix, sigma):
+    """``sum_f log(1 - sigmoid(s_f))`` per pixel ``[P]`` over the faces
+    ``fpx [f, 3, 2]`` (normalised coordinates): ``s_f`` is the squared
+    distance to the face's edges over ``sigma``, positive inside."""
+    a, b, c = fpx[None, :, 0], fpx[None, :, 1], fpx[None, :, 2]
+    p = pix[:, None]
+    e0 = _edge(b, c, p)
+    e1 = _edge(c, a, p)
+    e2 = _edge(a, b, p)
+    inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0)) | (
+        (e0 <= 0) & (e1 <= 0) & (e2 <= 0))
+    d2 = torch.minimum(_point_segment_d2(p, a, b),
+                       torch.minimum(_point_segment_d2(p, b, c),
+                                     _point_segment_d2(p, c, a)))
+    s = torch.where(inside, d2, -d2) / sigma
+    # log(1 - sigmoid(s)) = -softplus(s), in its stable form (no
+    # threshold: F.softplus returns s itself above 20)
+    return -(torch.relu(s) + torch.log1p(torch.exp(-s.abs()))).sum(1)
+
+
+# -log of the smallest subnormal, plus a margin: past this, exp(-s) is 0
+_UNDERFLOW = {torch.float32: 110.0, torch.float64: 750.0}
+
+
+class _SoftLogBackground(torch.autograd.Function):
+    """:func:`_soft_log_bg` of every pixel over every face, by tiles of
+    pixels.  A face adds exactly 0 (value and gradient) to a pixel more
+    than ``sqrt(s_max sigma)`` from it, where ``exp(-d2 / sigma)``
+    underflows, so each tile sums only the faces whose box, grown by that
+    radius, meets the tile (the JAX function sums all of them, the same
+    values).  Candidates go ``block`` faces at a time, and the backward
+    recomputes each chunk and takes its gradient there: memory stays at
+    one chunk both ways (the JAX ``lax.scan`` keeps every chunk's
+    residuals)."""
+
+    @staticmethod
+    def forward(ctx, fpx, S, sigma, tile, block):
+        ctx.save_for_backward(fpx)
+        ctx.args = (S, sigma, tile, block)
+        out = fpx.new_zeros((S, S))
+        for ys, xs, pix, ids in _soft_tiles(fpx, S, sigma, tile):
+            acc = pix.new_zeros(pix.shape[0])
+            for c in range(0, ids.numel(), block):
+                acc = acc + _soft_log_bg(fpx[ids[c:c + block]], pix, sigma)
+            out[ys, xs] = acc.reshape(ys.stop - ys.start, xs.stop - xs.start)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (fpx,) = ctx.saved_tensors
+        S, sigma, tile, block = ctx.args
+        out = torch.zeros_like(fpx)
+        with torch.enable_grad():
+            for ys, xs, pix, ids in _soft_tiles(fpx, S, sigma, tile):
+                g = grad[ys, xs].reshape(-1)
+                for c in range(0, ids.numel(), block):
+                    sel = ids[c:c + block]
+                    chunk = fpx[sel].detach().requires_grad_(True)
+                    val = _soft_log_bg(chunk, pix, sigma)
+                    (gc,) = torch.autograd.grad(val, [chunk], g)
+                    out.index_add_(0, sel, gc)
+        return out, None, None, None, None
+
+
+def _soft_tiles(fpx, S, sigma, tile):
+    """``(row slice, column slice, pixel centres [P, 2], candidate faces)``
+    of each ``tile`` x ``tile`` block of pixels that some face's grown box
+    meets; the candidates in ascending face order."""
+    # no grad-mode context here: a generator would hold it over its
+    # consumer's code between yields
+    f = fpx.detach()
+    r = (_UNDERFLOW[f.dtype] * sigma) ** 0.5
+    lo = f.amin(1) - r                                     # [F, 2]
+    hi = f.amax(1) + r
+    for y0 in range(0, S, tile):
+        ys = slice(y0, min(y0 + tile, S))
+        cy0, cy1 = (y0 + 0.5) / S, (ys.stop - 0.5) / S
+        rows = (hi[:, 1] >= cy0) & (lo[:, 1] <= cy1)
+        for x0 in range(0, S, tile):
+            xs = slice(x0, min(x0 + tile, S))
+            cx0, cx1 = (x0 + 0.5) / S, (xs.stop - 0.5) / S
+            ids = torch.nonzero(rows & (hi[:, 0] >= cx0)
+                                & (lo[:, 0] <= cx1))[:, 0]
+            if ids.numel() == 0:
+                continue
+            py = torch.arange(ys.start, ys.stop, dtype=f.dtype,
+                              device=f.device) + 0.5
+            px = torch.arange(xs.start, xs.stop, dtype=f.dtype,
+                              device=f.device) + 0.5
+            pix = torch.stack([px[None, :].expand(len(py), len(px)),
+                               py[:, None].expand(len(py), len(px))],
+                              -1).reshape(-1, 2) / S
+            yield ys, xs, pix, ids
+
+
+def soft_silhouette(face_px: torch.Tensor, image_size: int,
+                    sigma: float = 1e-4, face_block=None,
+                    face_z: torch.Tensor = None,
+                    znear: float = 1e-6) -> torch.Tensor:
+    """SoftRas-style probabilistic coverage ``[H, W]`` in [0, 1),
+    differentiable in ``face_px [F, 3, 2]``.
+
+    ``prob_f(p) = sigmoid(sign_f(p) d2(p, f) / sigma)`` with distances in
+    normalised [0, 1] image units, aggregated as ``1 - prod_f (1 -
+    prob_f) = 1 - exp(sum_f -softplus(s_f))``.  Faces with any vertex at
+    ``face_z <= znear`` (``[F, 3]`` camera depths, as from
+    :func:`project_faces`) are dropped, as the hard rasterizer's
+    ``front`` test drops them, and so are degenerate faces (``|area| <=
+    1e-9`` in normalised units).
+
+    Pixels go by square tiles (32 pixels a side on a CUDA device, 16
+    elsewhere), each over the faces near it, ``face_block`` faces at a
+    time (the JAX signature's knob; by default about 2^25 pixel-face
+    pairs a chunk on a CUDA device, 2^22 elsewhere).  Memory stays at one
+    chunk in the backward too (:class:`_SoftLogBackground`).  float32 or
+    float64 only.
+    """
+    S = int(image_size)
+    cuda = face_px.device.type == "cuda"
+    tile = 32 if cuda else 16
+    if face_block is None:
+        face_block = max(1, ((1 << 25) if cuda else (1 << 22)) // tile ** 2)
+    fpx = face_px / image_size
+    a, b, c = fpx[:, 0], fpx[:, 1], fpx[:, 2]
+    valid = _edge(a, b, c).abs() > EPS
+    if face_z is not None:
+        valid = valid & (face_z > znear).all(-1)
+    fpx = fpx[torch.nonzero(valid)[:, 0]]
+    if fpx.shape[0] == 0:
+        return face_px.new_zeros((S, S))
+    log_bg = _SoftLogBackground.apply(fpx, S, float(sigma), tile,
+                                      int(face_block))
+    return 1.0 - torch.exp(log_bg)

@@ -152,8 +152,34 @@ Phases; the first failure ends the run with a non-zero exit code:
    loss trace bitwise phase 3's; the checkpoint's bytes and its save
    and load ms.
 
-The line before the last is the kernel table as one JSON object; the last
-line is ``{"ok": true, "device": {...}}``.
+12. the rest of the single-device package: (a) ``python -m
+   bodyfitting_torch.tools.validate_assets`` through ``main(argv)`` with
+   ``FUSED_SKINNING = "on"`` on seeded files written to a temporary
+   directory (an SMPL-X ``.npz`` of 10,475 vertices, the GMM, HMR,
+   OpenPose body, hand and face and LBAM checkpoints in the released
+   layouts): exit code 0 with every row PASS, then 1 with the lbs row FAIL
+   on broken skinning weights; the skinning kernel at the SMPL-X forward's
+   arguments against its plain version, timed.  (b) phase 6's scan and the
+   same scan turned 90 degrees about the vertical and moved 0.1 m (its
+   cameras with it) fitted as one batch by ``fit_frames_batched``: both
+   96^3 volumes and the 600 + 600 SDF fit, then the exact route's 90 + 90;
+   scan 0 against phase 6's fit, scan 1's distance to its scan against
+   phase 6's, the nearest kernel at scan 1's last query against its plain
+   version, timed.  (c) ``render_fit_overlays`` of phase 9's keypoint fit
+   on its 2448 x 2048 views (every 12th): each z-buffer launch against the
+   plain version, timed; the card against the CPU on one view at 1/4
+   size.  (d) ``soft_silhouette`` of phase 3's body at 512^2, forward and
+   backward, timed with its peak memory; against the CPU at 128^2; IoU
+   with the hard raster at sigma 1e-6.  (e) ``inside_mesh`` and
+   ``intersects_any`` of the fitted SMPL's vertices against the scan,
+   timed; the card against the CPU on 512 queries.  The counters are
+   zeroed around each of (a), (b)'s two routes and (c), and held to the
+   counts the code gives: 2 ``skin_forward``; 28 and 298
+   ``nearest_d2_idx``; 4 ``rasterize_zbuf``.
+
+The line before the last is the kernel table as one JSON object (phase
+12's three rows carry a ``phase`` key); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1355,13 +1381,13 @@ def scan_step_times(model, config, obs, prior, init, body_vertices, device,
         profile_steps(step_fn, range(gate + 3 + n, gate + 23 + n),
                       "SDF post-gate steps")
     disp_loss, dopt, disp = smplify.displacement_problem(
-        model, config, obs, body_vertices)
+        model, config, obs, body_vertices[None])
 
     def disp_step(_):
         import torch
 
         disp.requires_grad_(True)
-        (g,) = torch.autograd.grad(disp_loss(disp), [disp])
+        (g,) = torch.autograd.grad(disp_loss(disp).sum(), [disp])
         disp.requires_grad_(False)
         dopt.step([g])
 
@@ -1517,13 +1543,13 @@ def phase_scan(size=SCAN_PATH, device="cuda", n_time=40, smi="",
     body_grad_err = max(float((a - b).abs().max())
                         for a, b in zip(gk, gp) if a.numel()) / top
     disp_loss, _, _ = smplify.displacement_problem(
-        model, ecfg, eobs, eresult["vertices"])
-    dstate = eresult["displacement"]
+        model, ecfg, eobs, eresult["vertices"][None])
+    dstate = eresult["displacement"][None]
     qcalls = []
 
     def disp_loss_grad():
         d = dstate.detach().clone().requires_grad_(True)
-        loss = disp_loss(d)
+        loss = disp_loss(d).sum()
         (g,) = torch.autograd.grad(loss, [d])
         return loss.detach(), g
 
@@ -1545,6 +1571,14 @@ def phase_scan(size=SCAN_PATH, device="cuda", n_time=40, smi="",
                 exact_launches=elaunches["nearest_d2_idx"],
                 chunk=chunk, query=qcalls[0],
                 max_abs_err=max(chunk_err, query_err),
+                # what phase 12 (b) batches with a second scan
+                batch_input=dict(
+                    model=model, prior=prior, config=config, problem=(
+                        c2ws, Ks, kps, sv, sf), fit_s=fit_s,
+                    sdf_resolution=R, exact_iters=size["exact_iters"],
+                    exact_s=exact_s, residual_mm=(r_body, r_disp),
+                    vertices=result["vertices"], displacement=disp,
+                    exact_vertices=eresult["vertices"]),
                 texture_input=dict(
                     scan_verts=sv, scan_faces=sf,
                     smpl_faces=model.faces.cpu().numpy(),
@@ -2079,8 +2113,9 @@ def write_genebody_subject(root, model, size, seed=0, all_images=False):
     log(f"app subject: {F} frames x {n_views} views, masks {W}x{H} written "
         f"in {write_s:.2f} s ({png_ms:.2f} ms per mask encode, 8 threads), "
         f"PNG decode {decode_ms:.2f} ms per mask (read_png, one thread)")
-    return dict(sub=sub, c2ws=c2ws, crop_K=crop_K, clean=clean, kps=kps,
-                write_s=write_s, encode_ms=png_ms, decode_ms=decode_ms)
+    return dict(sub=sub, c2ws=c2ws, Ks=Ks, crop_K=crop_K, clean=clean,
+                kps=kps, write_s=write_s, encode_ms=png_ms,
+                decode_ms=decode_ms)
 
 
 def write_keypoint_jsons(out_dir, kps, frames):
@@ -2424,7 +2459,7 @@ def phase_app(size=APP_PATH, device="cuda", smi=""):
                 f"(FUSED_SKINNING \"on\")")
             runs[name] = dict(wall=wall, counts=counts, expect=expect,
                               trace=trace, timing=timing, px=px,
-                              params_sha1=digest,
+                              params_sha1=digest, params=params,
                               fit=fits[-1] if name == "use_mask" else None,
                               frames=len(frames), iters=n_iter)
             log(f"app run {name}: {len(frames)} frames, {n_iter} iterations, "
@@ -2448,7 +2483,22 @@ def phase_app(size=APP_PATH, device="cuda", smi=""):
 
         rows, err = check_skin_kernels(rec, device, size["bench_batch"])
         onoff = check_on_off(runs["use_mask"]["fit"], device)
+        # what phase 12 (c) overlays: frame 0 of the keypoint run, at the
+        # JAX cadence (every 12th view), over grey-person images
+        from bodyfitting_torch.io.png import read_png
+
+        views = range(0, 48, 12)
+        masks = {v: read_png(os.path.join(subject["sub"], "mask",
+                                           "%02d" % v, "%04d.png" % 0))
+                 for v in views}
+        overlay = dict(
+            vertices=runs["keypoints"]["params"][0]["vertices"],
+            faces=model.faces.cpu().numpy(),
+            c2ws=subject["c2ws"], Ks=subject["Ks"],
+            images=[np.repeat((masks[v] // 2)[..., None], 3, 2)
+                    if v in masks else None for v in range(48)])
         return dict(runs=runs, rows=rows, err=err, onoff=onoff,
+                    overlay=overlay,
                     subject=dict(write_s=subject["write_s"],
                                  encode_ms=subject["encode_ms"],
                                  decode_ms=subject["decode_ms"]))
@@ -3426,6 +3476,654 @@ def phase_openpose(state, size=OPENPOSE_PATH, device="cuda", smi=""):
         tmp.cleanup()
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of the single-device package on the card
+# ---------------------------------------------------------------------------
+
+# Phase 12's shapes: (a) validate_assets on an SMPL-X asset of the
+# published width (10,475 vertices) and seeded checkpoints in the released
+# layouts; (b) phase 6's scan fit on a batch of two scans; (c) the debug
+# overlays of phase 9's keypoint fit on its 2448 x 2048 captures; (d) the
+# soft silhouette of phase 3's SMPL-X body at 512^2 (the card) and 128^2
+# (card vs CPU); (e) inside-mesh and intersects-any of the fitted SMPL's
+# vertices against the 219,008-face scan.
+PHASE12 = dict(
+    smplx_faces=2000, cpu_queries=512, cpu_soft=128, soft=512,
+    # scan 0 of the batch against phase 6's one-scan fit, mm: a batch
+    # runs the keypoint term's forward at B 2, whose sums round
+    # differently from B 1, and the f32 fit amplifies that (2.92 mm on the
+    # SDF route and 0.0012 mm on the exact one, NVIDIA H100 80GB HBM3 at
+    # 700 W, the first run of this phase)
+    max_scan0_mm=5.0,
+    # scan 1's mean distances to its scan against phase 6's: within this
+    # fraction of them
+    band=0.25,
+    # (d) on the card against the CPU at 128^2: coverage (absolute) and
+    # the vertex gradient (of its largest entry); other summation orders
+    # and CUDA's exp/log1p
+    soft_cov_tol=1e-4, soft_grad_tol=1e-3,
+    # (c) the card against the CPU on one view at 1/4 size: at most 1
+    # level, at no more than this share of the pixels
+    overlay_share=1e-3)
+
+SMPLX_PARENTS = ([-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
+                  16, 17, 18, 19] + [15, 15, 15]
+                 + [20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37,
+                    38]
+                 + [21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52,
+                    53])
+
+
+def write_smplx_asset(path, n_faces=2000, break_weights=False, seed=0):
+    """A seeded SMPL-X ``.npz`` of the published width (10,475 vertices,
+    55 joints, 400 shape directions, the hand PCA and landmark tables),
+    as ``tests/test_validate_assets.py`` writes it; ``break_weights``
+    scales the skinning weights by 1.5 (their rows no longer sum to 1)."""
+    J, V = 55, 10475
+    rng = np.random.default_rng(seed)
+    parents = np.asarray(SMPLX_PARENTS, np.int64)
+    kintree = np.stack([parents, np.arange(J)], 0).astype(np.uint32)
+    kintree[0, 0] = np.iinfo(np.uint32).max
+    F = n_faces
+    fa = rng.integers(0, V, size=F)
+    fb = (fa + 1 + rng.integers(0, V - 1, size=F)) % V
+    fc = (fa + 2 + rng.integers(0, V - 2, size=F)) % V
+    fc = np.where(fc == fb, (fc + 1) % V, fc)
+    fc = np.where(fc == fa, (fc + 1) % V, fc)
+    fc = np.where(fc == fb, (fc + 1) % V, fc)
+    weights = rng.dirichlet(np.ones(J), size=V)
+    if break_weights:
+        weights = weights * 1.5
+    np.savez(
+        str(path),
+        v_template=rng.normal(scale=0.3, size=(V, 3)),
+        shapedirs=rng.normal(scale=0.01, size=(V, 3, 400)),
+        posedirs=rng.normal(scale=1e-3, size=(V, 3, (J - 1) * 9)),
+        J_regressor=rng.dirichlet(np.ones(V) * 0.05, size=J),
+        weights=weights, kintree_table=kintree,
+        f=np.stack([fa, fb, fc], 1).astype(np.uint32),
+        hands_componentsl=rng.normal(size=(45, 45)),
+        hands_componentsr=rng.normal(size=(45, 45)),
+        hands_meanl=rng.normal(scale=0.05, size=45),
+        hands_meanr=rng.normal(scale=0.05, size=45),
+        lmk_faces_idx=rng.integers(0, F, size=51).astype(np.int64),
+        lmk_bary_coords=rng.dirichlet(np.ones(3), size=51),
+        dynamic_lmk_faces_idx=rng.integers(0, F, size=(79, 17)).astype(
+            np.int64),
+        dynamic_lmk_bary_coords=rng.dirichlet(np.ones(3), size=(79, 17)))
+
+
+def write_gmm_asset(path, K=8, D=69, seed=1):
+    """A seeded ``gmm_08.pkl`` (means, covariances, weights)."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    covs = []
+    for _ in range(K):
+        A = rng.normal(size=(D, D)) * 0.03
+        covs.append(A @ A.T + np.eye(D) * 0.2)
+    with open(path, "wb") as f:
+        pickle.dump({"means": rng.normal(scale=0.2, size=(K, D)),
+                     "covars": np.stack(covs),
+                     "weights": rng.dirichlet(np.ones(K))}, f)
+
+
+def write_checkpoints(root):
+    """Seeded HMR, OpenPose body / hand / face and LBAM checkpoints in the
+    released layouts; returns ``{flag: path}`` and the write seconds."""
+    import torch
+
+    from bodyfitting_torch.models import hmr, inpaint, openpose
+
+    t0 = time.perf_counter()
+    paths = {"--hmr": os.path.join(root, "model_checkpoint.pt")}
+    torch.save({"model": hmr.seeded_state_dict(0)}, paths["--hmr"])
+    for kind in ("body", "hand", "face"):
+        path = os.path.join(root, f"{kind}_pose_model.pth")
+        torch.save(openpose.seeded_state_dict(kind, 0), path)
+        paths[f"--openpose_{kind}"] = path
+    paths["--lbam"] = os.path.join(root, "LBAM_NoBN_ParisStreetView.pth")
+    torch.save({k: torch.from_numpy(v)
+                for k, v in inpaint.seeded_state_dict(0).items()},
+               paths["--lbam"])
+    return paths, time.perf_counter() - t0
+
+
+def run_validate(va, argv, device):
+    """``validate_assets.main(argv)`` with its report's rows kept and each
+    ``validate_*`` check timed: ``(rc, rows, seconds by check)``."""
+    rows, secs = [], {}
+    orig_dump = va.Report.dump
+
+    def dump(self):
+        rows.extend(self.rows)
+        orig_dump(self)
+
+    names = ("validate_model", "validate_gmm", "validate_hmr",
+             "validate_openpose", "validate_lbam")
+    originals = {n: getattr(va, n) for n in names}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(device)
+            key = name[len("validate_"):]
+            if name == "validate_openpose":
+                key += f" {a[1]}"
+            secs[key] = time.perf_counter() - t0
+            return out
+        return wrapped
+
+    va.Report.dump = dump
+    for n, fn in originals.items():
+        setattr(va, n, timed(n, fn))
+    try:
+        rc = va.main(argv, device=device)
+    finally:
+        va.Report.dump = orig_dump
+        for n, fn in originals.items():
+            setattr(va, n, fn)
+    return rc, rows, secs
+
+
+def phase_validate(device="cuda", size=PHASE12):
+    """(a) ``validate_assets`` on every asset kind with ``FUSED_SKINNING =
+    "on"``: every row PASS and exit code 0; with broken skinning weights
+    exit code 1 and the lbs row FAIL; the skinning kernel against its
+    plain version at the SMPL-X forward's arguments, timed."""
+    import tempfile
+
+    import torch
+
+    from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.tools import validate_assets as va
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.TemporaryDirectory(prefix="bodyfit_assets_")
+    root = tmp.name
+    bm.FUSED_SKINNING = "on"
+    try:
+        t0 = time.perf_counter()
+        npz = os.path.join(root, "SMPLX_NEUTRAL.npz")
+        broken = os.path.join(root, "SMPLX_BROKEN.npz")
+        gmm = os.path.join(root, "gmm_08.pkl")
+        write_smplx_asset(npz, size["smplx_faces"])
+        write_smplx_asset(broken, size["smplx_faces"], break_weights=True)
+        write_gmm_asset(gmm)
+        ckpts, ckpt_s = write_checkpoints(root)
+        log(f"validate: seeded assets written in "
+            f"{time.perf_counter() - t0:.2f} s (checkpoints {ckpt_s:.2f} s: "
+            + ", ".join(f"{os.path.basename(p)} "
+                        f"{os.path.getsize(p) / 2 ** 20:.1f} MiB"
+                        for p in ckpts.values()) + ")")
+        argv = ["--model_path", npz, "--model_type", "smplx", "--gmm", gmm]
+        for flag, path in ckpts.items():
+            argv += [flag, path]
+        rec = SkinRecorder()
+        sync(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with rec.active():
+            rc, rows, secs = run_validate(va, argv, device)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        fails = [r for r in rows if r[0] is False]
+        log(f"validate (a): exit code {rc}, {len(rows)} rows, "
+            f"{sum(1 for r in rows if r[0])} PASS, {len(fails)} FAIL, in "
+            f"{wall:.2f} s on {device}; seconds by asset: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+            + f"; launches {counts}")
+        assert rc == 0 and not fails, fails
+        if on_card:
+            assert counts["skin_forward"] == 2 and sum(
+                counts.values()) == 2, counts
+        rc_b, rows_b, _ = run_validate(
+            va, ["--model_path", broken, "--model_type", "smplx"], device)
+        lbs = [r for r in rows_b if r[1] == "lbs weight rows sum to 1"]
+        log(f"validate (a) broken weights: exit code {rc_b}, lbs row "
+            f"{'FAIL' if lbs and lbs[0][0] is False else 'PASS'} "
+            f"[{lbs[0][2] if lbs else ''}]")
+        assert rc_b == 1 and lbs and lbs[0][0] is False, rows_b
+        # the kernel at the SMPL-X forward's arguments
+        W, A, vp = rec.fwd[10475]
+        out = K.skin_forward(W, A, vp)
+        ref = K.skin_forward_plain(W, A, vp)
+        sync(device)
+        same = torch.equal(out, ref)
+        err = float((out - ref).abs().max())
+        B, V, J = vp.shape[0], vp.shape[1], W.shape[1]
+        log(f"skin_forward at validate's SMPL-X forward (B {B}, V {V}, J "
+            f"{J}): bitwise equal to the plain version: {same} (tol: exact); "
+            f"max abs err {err:.3e}")
+        assert same, "skin_forward differs from its plain version (12a)"
+        row = dict(name="skin_forward", route="cuda",
+                   source=SOURCES["skin_forward"],
+                   replaces=TPU_KERNELS["skin_forward"],
+                   launches=counts["skin_forward"], max_abs_err=err,
+                   ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                   library_ms=None, phase="12a validate_assets",
+                   shape=f"B {B} V {V}")
+        if on_card:
+            ms = cuda_ms(lambda: K.skin_forward(W, A, vp), reps=20)
+            plain = cuda_ms(lambda: K.skin_forward_plain(W, A, vp), reps=2,
+                            warmup=1)
+
+            def auto():
+                T = torch.matmul(W, A).reshape(B, V, 3, 4)
+                return torch.einsum("bvij,bvj->bvi", T[..., :3],
+                                    vp) + T[..., 3]
+
+            lib = cuda_ms(auto, reps=20)
+            b, by = skin_bound(B, V, J, False)
+            log(f"skin_forward (12a) B {B} V {V}: {ms:.4f} ms, plain "
+                f"{plain:.3f} ms, \"auto\" (matmul + einsum) {lib:.4f} ms, "
+                f"bound {b:.5f} ms ({by})")
+            row.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                       library_ms=lib)
+        return dict(row=row, secs=secs, wall=wall)
+    finally:
+        bm.FUSED_SKINNING = "auto"
+        tmp.cleanup()
+
+
+def last_call(store):
+    """A ``nearest_ops`` replacement that keeps only the last call's
+    arguments (an exact fit makes hundreds)."""
+    def replace(fn):
+        def wrapped(*a, **kw):
+            store[:] = [(a, kw)]
+            return fn(*a, **kw)
+        return wrapped
+    return replace
+
+
+def turned_scan(c2ws, sv):
+    """Phase 12 (b)'s second scan: the first turned 90 degrees about the
+    vertical (+y) axis and moved 0.1 m along x, its cameras with it (so
+    the keypoints stay those of the first)."""
+    T = np.eye(4)
+    T[:3, :3] = [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]
+    T[:3, 3] = [0.1, 0.0, 0.0]
+    sv1 = (sv.astype(np.float64) @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    return [(T @ c).astype(np.float32) for c in c2ws], sv1
+
+
+def phase_scan_batch(inp, device="cuda", size=PHASE12):
+    """(b) phase 6's scan fit on a batch of two scans through
+    ``fit_frames_batched``: both volumes and the SDF fit, then the exact
+    route, at phase 6's depths.  Scan 0 against phase 6's one-scan fit;
+    scan 1's distances against phase 6's band; the nearest kernel against
+    its plain version at the exact fit's last query (scan 1), timed."""
+    import torch
+
+    from bodyfitting_torch.fitting import body_fitting as bf
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.nearest import nearest_points
+
+    on_card = torch.device(device).type == "cuda"
+    model, prior, config = inp["model"], inp["prior"], inp["config"]
+    c2ws, Ks, kps, sv, sf = inp["problem"]
+    c2ws1, sv1 = turned_scan(c2ws, sv)
+    R = inp["sdf_resolution"]
+    chunks = -(-R ** 3 // 65536)
+    sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    obs = [bf.build_observations(cams, Ks, kps, use_hand_face=False,
+                                 scan_verts=verts, scan_faces=sf,
+                                 sdf_resolution=R, device=device)
+           for cams, verts in ((c2ws, sv), (c2ws1, sv1))]
+    inits = [bf.init_params_from_hmr(model, *bf.hmr_init(None, cams[0]))
+             for cams in (c2ws, c2ws1)]
+    sync(device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, result, losses = bf.fit_frames_batched(model, config, obs, inits,
+                                              prior)
+    sync(device)
+    fit_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    log(f"scan batch (b) SDF route: two {R}^3 volumes in {build_s:.3f} s, "
+        f"fit {config.num_iters} + {config.num_iters} iterations of 2 scans "
+        f"in {fit_s:.3f} s wall (phase 6, one scan: {inp['fit_s']:.3f} s, "
+        f"{fit_s / inp['fit_s']:.2f}x); launches {launches}")
+    if on_card:
+        assert launches["nearest_d2_idx"] == 2 * chunks, launches
+    assert losses.shape == (2, 2 * config.num_iters)
+    assert torch.isfinite(losses).all(), "non-finite loss"
+    d0 = float((result["vertices"][0] - inp["vertices"]).abs().max()) * 1e3
+    dd = float((result["displacement"][0]
+                - inp["displacement"]).abs().max()) * 1e3
+
+    def residual_mm(v, o):
+        closest, _ = nearest_points(v, o.scan_verts[0], o.scan_faces[0])
+        return float((v - closest).norm(dim=1).mean()) * 1e3
+
+    r1 = (residual_mm(result["vertices"][1], obs[1]),
+          residual_mm(result["vertices"][1] + result["displacement"][1],
+                      obs[1]))
+    r6 = inp["residual_mm"]
+    log(f"scan batch (b): scan 0 against phase 6's one-scan fit: vertices "
+        f"max |diff| {d0:.4f} mm (tol {size['max_scan0_mm']} mm), "
+        f"displacements {dd:.4f} mm (not held: nothing holds a vertex in "
+        f"place along the surface, ROADMAP 3); scan 1 mean distance to its "
+        f"scan "
+        f"{r1[0]:.2f} mm body, {r1[1]:.2f} mm with the displacements "
+        f"(phase 6: {r6[0]:.2f} / {r6[1]:.2f} mm; band +-"
+        f"{size['band'] * 100:.0f} %)")
+    assert d0 <= size["max_scan0_mm"], d0
+    for a, b in zip(r1, r6):
+        assert abs(a - b) <= size["band"] * b, (r1, r6)
+
+    # the exact route at full width and phase 6's cut depth
+    ecfg = dataclasses.replace(config, mesh_loss_impl="exact",
+                               num_iters=inp["exact_iters"])
+    egate = ecfg.num_iters // ecfg.stage_gate_den
+    eobs = [dataclasses.replace(o, scan_volume=None) for o in obs]
+    last = []
+    sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with nearest_ops(last_call(last)):
+        _, eresult, elosses = bf.fit_frames_batched(model, ecfg, eobs,
+                                                    inits, prior)
+    sync(device)
+    exact_s = time.perf_counter() - t0
+    elaunches = K.launch_counts()
+    expect = 2 * ((ecfg.num_iters - egate - 1) + ecfg.num_iters)
+    de = float((eresult["vertices"][0]
+                - inp["exact_vertices"]).abs().max()) * 1e3
+    log(f"scan batch (b) exact route: {ecfg.num_iters} + {ecfg.num_iters} "
+        f"iterations of 2 scans in {exact_s:.3f} s wall (phase 6, one "
+        f"scan: {inp['exact_s']:.3f} s); launches {elaunches} (one per "
+        f"scan and query; expected {expect}); scan 0 against phase 6's: "
+        f"vertices max |diff| {de:.4f} mm")
+    assert torch.isfinite(elosses).all()
+    if on_card:
+        assert elaunches["nearest_d2_idx"] == expect, elaunches
+    args, kw = last[0]
+    err = check_nearest(args, kw, "two-scan batch, scan 1 in-fit query")
+    row = dict(name="nearest_d2_idx", route="cuda",
+               source=SOURCES["nearest_d2_idx"],
+               replaces=TPU_KERNELS["nearest_d2_idx"],
+               launches=launches["nearest_d2_idx"]
+               + elaunches["nearest_d2_idx"], max_abs_err=err,
+               ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+               library_ms=None, phase="12b batch of two scans",
+               shape=f"in-fit query Q {args[0].shape[0]} F "
+               f"{args[1].shape[0]}, 2 scans a step",
+               launches_by_route=dict(sdf=launches["nearest_d2_idx"],
+                                      exact=elaunches["nearest_d2_idx"]))
+    if on_card:
+        pts, tri = args[0], args[1]
+        ms = cuda_ms(lambda: K.nearest_d2_idx(*args, **kw), reps=10,
+                     warmup=1)
+        plain = cuda_ms(lambda: K.nearest_d2_idx_plain(*args, **kw),
+                        reps=1, warmup=0)
+        d2, _ = K.nearest_d2_idx(*args, **kw)
+        pairs = box_survivors(pts, tri, d2, kw["tie_verts"])
+        b, by = bound_ms(nbytes(*args, *kw.values()) + pts.shape[0] * 8,
+                         NEAREST_OPS_PER_PAIR * pairs)
+        log(f"nearest_d2_idx (12b) scan 1 query Q {pts.shape[0]} F "
+            f"{tri.shape[0]}: {ms:.3f} ms, plain {plain:.3f} ms, bound "
+            f"{b:.5f} ms ({by}; {pairs} pairs that face boxes cannot rule "
+            f"out); library: none")
+        row.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    return dict(row=row, fit_s=fit_s, exact_s=exact_s, scan0_mm=d0,
+                scan1_mm=r1, verts=result["vertices"][0], scan=(sv, sf))
+
+
+@contextlib.contextmanager
+def zbuf_recorder(calls):
+    """Keep every ``kernels.rasterize_zbuf`` call's arguments; the counted
+    wrapper still runs."""
+    from bodyfitting_torch.ops import kernels as K
+
+    orig = K.rasterize_zbuf
+
+    def wrapped(face_px, face_z, size):
+        calls.append((face_px, face_z, size))
+        return orig(face_px, face_z, size)
+
+    K.rasterize_zbuf = wrapped
+    try:
+        yield
+    finally:
+        K.rasterize_zbuf = orig
+
+
+def phase_overlay(ov, device="cuda", size=PHASE12):
+    """(c) ``render_fit_overlays`` of phase 9's keypoint fit (frame 0) on
+    its 2448 x 2048 views at the JAX cadence (every 12th): each z-buffer
+    launch against the plain version on the card, timed; the card against
+    the CPU on view 0 at 1/4 size."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.utils.overlay import (
+        render_fit_overlays,
+        render_mesh_overlay,
+    )
+
+    on_card = torch.device(device).type == "cuda"
+    images, c2ws, Ks = ov["images"], ov["c2ws"], ov["Ks"]
+    verts, faces = ov["vertices"], ov["faces"]
+    calls = []
+    sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with zbuf_recorder(calls):
+        outs = render_fit_overlays(images, {"vertices": verts}, faces, c2ws,
+                                   Ks, skip=12, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    H, W = images[0].shape[:2]
+    covered = [float((o != images[i]).any(-1).mean()) for i, o in outs]
+    log(f"overlay (c): views {[i for i, _ in outs]} at {W}x{H} in "
+        f"{wall:.3f} s ({wall / len(outs) * 1e3:.1f} ms a view, the uint8 "
+        f"result copied once a view); the mesh over {np.round(covered, 4)} "
+        f"of each image; launches {counts}")
+    assert [i for i, _ in outs] == [0, 12, 24, 36]
+    assert all(0.005 < c < 0.9 for c in covered), covered
+    if on_card:
+        assert counts["rasterize_zbuf"] == len(outs) and sum(
+            counts.values()) == len(outs), counts
+    plain_ms, err = [], 0.0
+    for (px, fz, S), (i, _) in zip(calls, outs):
+        p, e = check_raster("rasterize_zbuf", (px, fz), S,
+                            f"overlay view {i}")
+        plain_ms.append(p)
+        err = max(err, e)
+    # the card against the CPU on view 0 at 1/4 size
+    small = np.ascontiguousarray(images[0][::4, ::4])
+    K4 = np.array(Ks[0], np.float64)
+    K4[:2] *= 0.25
+    w2c = np.linalg.inv(np.asarray(c2ws[0]))
+    got = render_mesh_overlay(small, verts, faces, w2c, K4, device=device)
+    t0 = time.perf_counter()
+    ref = render_mesh_overlay(small, verts, faces, w2c, K4, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d = np.abs(got.astype(int) - ref.astype(int))
+    log(f"overlay (c) {device} vs CPU, view 0 at {small.shape[1]}x"
+        f"{small.shape[0]}: max {d.max()} level, {(d > 0).mean():.2e} of "
+        f"the values differ (tol: 1 level at {size['overlay_share']:.0e}); "
+        f"CPU {cpu_s:.2f} s")
+    assert d.max() <= 1 and (d > 0).mean() <= size["overlay_share"]
+    px, fz, S = calls[0]
+    row = dict(name="rasterize_zbuf", route="cuda",
+               source=SOURCES["rasterize_zbuf"],
+               replaces=TPU_KERNELS["rasterize_zbuf"],
+               launches=counts["rasterize_zbuf"], max_abs_err=err,
+               ms=None, plain_ms=float(np.mean(plain_ms)), bound_ms=None,
+               bound_by=None, library_ms=None, phase="12c overlays",
+               shape=f"overlay {S}^2 F {px.shape[0]}")
+    if on_card:
+        ms = cuda_ms(lambda: K.rasterize_zbuf(px, fz, S), reps=10, warmup=2)
+        b = (nbytes(px, fz) + S * S * 8) / HBM_BYTES_PER_S * 1e3
+        pairs = box_pairs(px, fz, S)
+        log(f"rasterize_zbuf (12c) overlay {S}^2 F {px.shape[0]}: {ms:.4f} "
+            f"ms, plain {np.mean(plain_ms):.3f} ms, bound {b:.5f} ms "
+            f"(bytes: faces in, depth and index out; {pairs} pixel-face "
+            f"pairs in face boxes, "
+            f"{RASTER_OPS_PER_PAIR * pairs / F32_FLOPS_PER_S * 1e3:.5f} ms "
+            f"of operations); library: none")
+        row.update(ms=ms, bound_ms=b, bound_by="bytes")
+    return dict(row=row, wall=wall)
+
+
+def phase_soft(state, device="cuda", size=PHASE12):
+    """(d) ``soft_silhouette`` of phase 3's fitted SMPL-X body (frame 0,
+    mask view 0) at 512^2, forward and backward on the card, timed, with
+    its peak memory; the card against the CPU at 128^2; IoU against the
+    hard raster at sigma 1e-6."""
+    import torch
+
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.ops import rasterize as rz
+
+    on_card = torch.device(device).type == "cuda"
+    model, obs = state["model"], state["obs"]
+    with torch.no_grad():
+        verts = smplify.fit_result(model, state["params"],
+                                   obs)["vertices"][0].detach()
+    faces = model.faces
+    w2c, Kc = obs.mask_w2cs[0, 0], obs.mask_Ks[0, 0]
+    imsize = size["soft"]
+    wts = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(imsize, imsize)).astype(np.float32), device=verts.device)
+
+    def run(v, f, w2c, K, S, weights, sigma=1e-4):
+        v = v.clone().requires_grad_(True)
+        px, fz = rz.project_faces(v, f, w2c, K)
+        cov = rz.soft_silhouette(px, S, sigma=sigma, face_z=fz)
+        (cov * weights).sum().backward()
+        return cov.detach(), v.grad
+
+    base = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cov, grad = run(verts, faces, w2c, Kc, imsize, wts)
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            if on_card else float("nan"))
+    fwd_ms = bwd_ms = float("nan")
+    if on_card:
+        v = verts.clone().requires_grad_(True)
+
+        def fwd():
+            px, fz = rz.project_faces(v, faces, w2c, Kc)
+            return rz.soft_silhouette(px, imsize, face_z=fz)
+
+        fwd_ms = cuda_ms(fwd, reps=1, warmup=0)     # warm: the run above
+        out = fwd()
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, [v], wts, retain_graph=True), reps=1, warmup=0)
+    F = faces.shape[0]
+    log(f"soft_silhouette (d) at {imsize}^2, F {F} ({imsize ** 2 * F:.3e} "
+        f"pixel-face pairs): forward and backward {wall:.3f} s wall "
+        f"(forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, CUDA events), "
+        f"peak memory {peak:.0f} MiB above the inputs; coverage sum "
+        f"{float(cov.sum()):.1f}")
+    assert torch.isfinite(cov).all() and torch.isfinite(grad).all()
+    # IoU against the hard raster at a tiny sigma
+    with torch.no_grad():
+        px, fz = rz.project_faces(verts, faces, w2c, Kc)
+        sharp = rz.soft_silhouette(px, imsize, sigma=1e-6, face_z=fz) > 0.5
+        hard = rz.render_silhouette(rz.rasterize(px, fz, imsize)) > 0.5
+    iou = float((sharp & hard).sum()) / max(float((sharp | hard).sum()), 1.0)
+    log(f"soft_silhouette (d): IoU of the sigma 1e-6 coverage > 0.5 with "
+        f"render_silhouette {iou:.5f} (tol >= 0.98); {int(hard.sum())} "
+        f"pixels covered")
+    assert iou >= 0.98, iou
+    # the card against the CPU at 128^2
+    S = size["cpu_soft"]
+    K4 = Kc.clone()
+    K4[:2] *= S / imsize
+    w4 = wts[:S, :S].contiguous()
+    got = run(verts, faces, w2c, K4, S, w4)
+    t0 = time.perf_counter()
+    ref = run(verts.cpu(), faces.cpu(), w2c.cpu(), K4.cpu(), S, w4.cpu())
+    cpu_s = time.perf_counter() - t0
+    cerr = float((got[0].cpu() - ref[0]).abs().max())
+    gerr = float((got[1].cpu() - ref[1]).abs().max() / ref[1].abs().max())
+    log(f"soft_silhouette (d) {device} vs CPU at {S}^2: coverage max abs "
+        f"err {cerr:.3e} (tol {size['soft_cov_tol']:.0e}), vertex gradient "
+        f"{gerr:.3e} of its largest entry (tol {size['soft_grad_tol']:.0e}); "
+        f"CPU {cpu_s:.2f} s")
+    assert cerr <= size["soft_cov_tol"] and gerr <= size["soft_grad_tol"]
+    return dict(wall=wall, fwd_ms=fwd_ms, bwd_ms=bwd_ms, peak_mib=peak,
+                iou=iou, cov_err=cerr, grad_err=gerr)
+
+
+def phase_mesh_queries(verts, scan_verts, scan_faces, smpl_faces,
+                       device="cuda", size=PHASE12):
+    """(e) ``inside_mesh`` of the fitted SMPL's vertices and
+    ``intersects_any`` along their normals against the scan, timed; the
+    card against the CPU on a seeded 512 of the queries."""
+    import torch
+
+    from bodyfitting_torch.ops.mesh_queries import inside_mesh, intersects_any
+
+    dev = verts.device
+    faces = torch.as_tensor(scan_faces, device=dev)
+    scan = torch.as_tensor(scan_verts, device=dev)
+    normals = torch.as_tensor(vertex_normals(
+        verts.double().cpu().numpy(), smpl_faces).astype(np.float32),
+        device=dev)
+    sync(device)
+    t0 = time.perf_counter()
+    inside = inside_mesh(verts, scan, faces)
+    sync(device)
+    t1 = time.perf_counter()
+    hits = intersects_any(verts, normals, scan, faces)
+    sync(device)
+    t2 = time.perf_counter()
+    Q, F = verts.shape[0], faces.shape[0]
+    log(f"mesh queries (e): {Q} queries x {F} faces ({Q * F:.3e} ray "
+        f"tests each): inside_mesh {(t1 - t0) * 1e3:.1f} ms "
+        f"({float(inside.float().mean()):.3f} inside), intersects_any along "
+        f"the normals {(t2 - t1) * 1e3:.1f} ms "
+        f"({float(hits.float().mean()):.3f} hit)")
+    pick = torch.as_tensor(np.random.default_rng(0).choice(
+        Q, size["cpu_queries"], replace=False), device=dev)
+    t3 = time.perf_counter()
+    cin = inside_mesh(verts[pick].cpu(), scan.cpu(), faces.cpu())
+    chit = intersects_any(verts[pick].cpu(), normals[pick].cpu(), scan.cpu(),
+                          faces.cpu())
+    same = (torch.equal(cin, inside[pick].cpu())
+            and torch.equal(chit, hits[pick].cpu()))
+    log(f"mesh queries (e): {device} vs CPU on {size['cpu_queries']} "
+        f"queries: equal {same} (tol: exact); CPU "
+        f"{time.perf_counter() - t3:.2f} s")
+    assert same
+    return dict(inside_ms=(t1 - t0) * 1e3, hit_ms=(t2 - t1) * 1e3)
+
+
+def phase_rest(state, scan, app, device="cuda", size=PHASE12):
+    """Phase 12: (a) validate_assets, (b) a batch of two scans, (c) the
+    overlays, (d) the soft silhouette, (e) the mesh queries.  Returns the
+    three kernel rows and each part's results."""
+    t0 = time.perf_counter()
+    inp = scan["batch_input"]
+    a = phase_validate(device, size)
+    b = phase_scan_batch(inp, device, size)
+    c = phase_overlay(app["overlay"], device, size)
+    d = phase_soft(state, device, size)
+    e = phase_mesh_queries(b["verts"], *b["scan"],
+                           inp["model"].faces.cpu().numpy(), device, size)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return dict(rows=[a["row"], b["row"], c["row"]], validate=a, batch=b,
+                overlay=c, soft=d, queries=e)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3455,6 +4153,8 @@ def main():
     table.extend(skin_rows(app))
     rp = phase_rp_app(smi=smi)
     phase_openpose(state, smi=smi)
+    rest = phase_rest(state, scan, app)
+    table.extend(rest["rows"])
     for row in table:
         row["launches_rp_app"] = {k: r["counts"][row["name"]]
                                   for k, r in rp["runs"].items()}

@@ -64,7 +64,12 @@ def test_importing_the_port_loads_no_jax():
         "from bodyfitting_torch.apps import genebody, renderpeople\n"
         "from bodyfitting_torch.fitting import sequence\n"
         "from bodyfitting_torch.io import cameras, images, jpeg, obj, "
-        "openpose, params, png, scan_prep\n"
+        "openpose, params, png, rgbd_stream, scan_prep\n"
+        "from bodyfitting_torch.ops import camera, geometry, mesh_queries, "
+        "rotations\n"
+        "from bodyfitting_torch.tools import manifests, validate_assets\n"
+        "from bodyfitting_torch.utils import cam_pose_vis, camera_rig, "
+        "correspondence, imutils, overlay, reconstruction\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',\n"
         "                               'bodyfitting_tpu')]\n"
@@ -74,6 +79,43 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_importing_the_packages_builds_no_kernel():
+    """``bodyfitting_torch.ops`` and ``.losses`` re-export the JAX
+    packages' names; importing them (and every module) loads no
+    ``triton`` and loads or builds no kernel library."""
+    code = (
+        "import sys\n"
+        "import bodyfitting_torch.ops as ops, bodyfitting_torch.losses\n"
+        "from bodyfitting_torch.ops.kernels import _build\n"
+        "from bodyfitting_torch.tools import validate_assets\n"
+        "from bodyfitting_torch.utils import overlay, imutils\n"
+        "assert not _build._LIBS, _build._LIBS\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert not hasattr(ops, 'rasterize') or "
+        "type(ops.rasterize).__name__ == 'module'\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-2000:]
+
+
+def test_export_lists_match_the_jax_packages():
+    import bodyfitting_tpu.losses as jl
+    import bodyfitting_tpu.ops as jo
+
+    import bodyfitting_torch.losses as tl
+    import bodyfitting_torch.ops as to
+
+    for j, t in ((jo, to), (jl, tl)):
+        names = {n for n, v in vars(j).items()
+                 if not n.startswith("_") and callable(v)}
+        assert names and names <= set(vars(t)), sorted(names - set(vars(t)))
+    assert "rasterize" not in {n for n, v in vars(to).items()
+                               if callable(v)}
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
@@ -136,6 +178,13 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     calls += [lambda: op.load_body_net(), lambda: op.load_hand_net(),
               lambda: op.load_face_net(), lambda: opi.BodyDetector(),
               lambda: opi.HandDetector(), lambda: opi.FaceDetector()]
+    # validate_assets and the overlays
+    from bodyfitting_torch.tools import validate_assets as va
+    from bodyfitting_torch.utils import overlay
+
+    calls += [lambda: va.main(["--gmm", "missing.pkl"]),
+              lambda: overlay.render_mesh_overlay(
+                  np.zeros((4, 4, 3), np.uint8), quad, tri, eye[0], K[0])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

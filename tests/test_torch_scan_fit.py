@@ -245,17 +245,23 @@ def test_mean_pose_init_matches_jax():
 
 
 def test_scan_fit_refuses_a_batch_of_scans():
+    """A batch of scans of different shapes is refused (JAX cannot stack
+    them either; equal-shape batches: ``test_torch_scan_batch.py``), and
+    so is a scan fit without a scan."""
     model = _jax_model()
     tm = torch_model(model)
     c2ws, Ks, kps, sv, sf = _scan_problem(model)
     obs = tbf.build_observations(c2ws, Ks, kps, use_hand_face=False,
                                  scan_verts=sv, scan_faces=sf, build_sdf=False,
                                  device="cpu")
-    two = tfit.concat_frames([obs, obs])
-    init = tfit.FitParams.init(tm, batch=2)
+    other = tbf.build_observations(c2ws, Ks, kps, use_hand_face=False,
+                                   scan_verts=sv, scan_faces=sf[1:],
+                                   build_sdf=False, device="cpu")
+    init = tfit.FitParams.init(tm)
     cfg = tfit.FitConfig(**dict(_config("exact"), num_iters=3))
-    with pytest.raises(NotImplementedError):
-        tfit.fit(tm, cfg, two, init, lambda p: p.new_zeros(p.shape[:-1]))
+    with pytest.raises(ValueError, match="different shapes"):
+        tbf.fit_frames_batched(tm, cfg, [obs, other], [init, init],
+                               lambda p: p.new_zeros(p.shape[:-1]))
     no_scan = dataclasses.replace(obs, scan_verts=None, scan_faces=None)
     with pytest.raises(ValueError):
         tfit.fit(tm, cfg, no_scan, tfit.FitParams.init(tm),

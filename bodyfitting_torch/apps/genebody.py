@@ -19,11 +19,19 @@ never hold two detectors' activations.  ``--openpose_ckpt_dir`` names the
 directory of the released ``body_pose_model.pth``,
 ``hand_pose_model.pth`` and ``face_pose_model.pth``.
 
-Not ported, and refused with an error: ``--data_parallel`` (ROADMAP §1
-item 4).  Images are PNG or JPEG, decoded by the port's own readers
-(``io/png.py``, ``io/jpeg.py``): the card's machine has no image library.
+``--data_parallel`` splits each batch's frames over the ranks of a
+``torch.distributed`` world (``bodyfitting_torch/parallel``): a world of
+one in this process, or one process a card under ``torchrun
+--nproc-per-node N``, where each rank takes card ``LOCAL_RANK``, prepares
+every frame, fits its block of each batch and gets the whole batch back;
+rank 0 alone writes files.  Over several ranks the keypoint JSONs must be
+cached already (run ``--tasks openpose`` in a world of one first).
+Images are PNG or JPEG, decoded by the port's own readers (``io/png.py``,
+``io/jpeg.py``): the card's machine has no image library.
 
 Run:  python -m bodyfitting_torch.apps.genebody --target_dir ... --subject ...
+      torchrun --nproc-per-node N -m bodyfitting_torch.apps.genebody \
+          --data_parallel --tasks smplify output ...
 """
 
 from __future__ import annotations
@@ -111,8 +119,9 @@ def config_parser():
                         "masks under output_dir so later runs skip the "
                         "full-resolution mask decodes (identical results)")
     p.add_argument("--data_parallel", default=False, action="store_true",
-                   help="shard frame batches over several devices; not "
-                        "ported (raises)")
+                   help="split each batch's frames over the ranks of a "
+                        "torch.distributed world (torchrun, or a world "
+                        "of one)")
     p.add_argument("--temporal", default=False, action="store_true",
                    help="temporally coupled fit per batch (velocity and "
                         "betas-consistency priors over the frame axis; "
@@ -206,6 +215,20 @@ def _load_body_model_uncached(args, gender, device):
     return model
 
 
+def save_atomic(path: str, write) -> None:
+    """``write(f)`` into a file beside ``path``, then renamed over it: a
+    rank that reads ``path`` meanwhile sees the old file or the new one,
+    never a part."""
+    tmp = "%s.%d.tmp" % (path, os.getpid())
+    try:
+        with open(tmp, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def load_prior(args, device=None):
     device = default_device(device)
     key = (args.gmm_path, str(device))
@@ -223,12 +246,18 @@ class Runner:
     card) is where the fits run; frames are prepared on the host."""
 
     def __init__(self, args, device=None):
-        if args.data_parallel:
-            raise NotImplementedError(
-                "--data_parallel (frame batches sharded over several "
-                "devices) is not ported yet: ROADMAP §1 item 4")
         self.args = args
-        self.device = default_device(device)
+        self._dp_mesh = None
+        self.world = 1
+        if args.data_parallel:
+            from bodyfitting_torch.parallel import sharding as sh
+
+            self.device = sh.init_world(device)
+            self.world = torch.distributed.get_world_size()
+            self.writer = torch.distributed.get_rank() == 0
+        else:
+            self.device = default_device(device)
+            self.writer = True
         self.subject = args.subject
         self.target_dir = os.path.join(args.target_dir, self.subject)
         self.output_dir = os.path.join(args.output_dir, self.subject)
@@ -375,16 +404,17 @@ class Runner:
             loaded = list(ex.map(load_view, range(len(self.views)),
                                  self.views))
 
-        if self.args.io_cache and not np.array_equal(
+        if self.writer and self.args.io_cache and not np.array_equal(
                 new_cache, bbox_cache if bbox_cache is not None else -1):
-            np.save(cache_path, new_cache)
-        if self.args.io_cache and any(
+            save_atomic(cache_path, lambda f: np.save(f, new_cache))
+        if self.writer and self.args.io_cache and any(
                 crop_cache is None or v not in crop_cache
                 or not np.array_equal(crop_cache[v], a)
                 for v, a in new_crops.items()):
             merged = dict(crop_cache or {})
             merged.update(new_crops)
-            np.savez(crop_path, **{"m%02d" % v: a for v, a in merged.items()})
+            save_atomic(crop_path, lambda f: np.savez(
+                f, **{"m%02d" % v: a for v, a in merged.items()}))
 
         Ks, c2ws, use_frames, mask_frames, images, masks = (
             [], [], [], [], [], [])
@@ -412,6 +442,11 @@ class Runner:
         n_json = len([f for f in os.listdir(wrt_dir) if f.endswith(".json")])
         if n_json >= len(data[0]):
             return                          # cached
+        if self.world > 1:
+            raise RuntimeError(
+                f"--data_parallel over {self.world} ranks needs the frame's "
+                f"keypoint JSONs in {wrt_dir}: run --tasks openpose in a "
+                f"world of one first")
         if self.args.native_openpose:
             self._native_detect(img_dir, wrt_dir)
             return
@@ -603,9 +638,21 @@ class Runner:
         if self.args.smplx_with_smpl_init and self.args.smpl_type == "smplx":
             init_list = self._smpl_init_stage(obs_list, init_list, config)
         with self._stage("fit/dispatch"):
+            mesh = None
+            if self.args.data_parallel:
+                from bodyfitting_torch.parallel import sharding as sh
+
+                if self._dp_mesh is None:
+                    self._dp_mesh = sh.make_mesh(n_view_shards=1)
+                mesh = self._dp_mesh
             if self.args.temporal:
                 results, losses = bf.fit_sequence_batched(
-                    self.model, config, obs_list, init_list, self.prior)
+                    self.model, config, obs_list, init_list, self.prior,
+                    mesh=mesh)
+            elif mesh is not None:
+                _, results, losses = bf.fit_frames_batched_sharded(
+                    self.model, config, obs_list, init_list, self.prior,
+                    mesh=mesh)
             else:
                 _, results, losses = bf.fit_frames_batched(
                     self.model, config, obs_list, init_list, self.prior)
@@ -613,7 +660,9 @@ class Runner:
 
     def write_batch(self, frames, results, losses):
         """Fetch a batch's results and write its files (the writer thread
-        in the pipelined loop)."""
+        in the pipelined loop; rank 0 alone under ``--data_parallel``)."""
+        if not self.writer:
+            return
         trace = LossTrace(os.path.join(self.output_dir, "loss_trace.jsonl"))
         with self._stage("fit/device_wait"):
             losses_np = losses.cpu().numpy()
@@ -670,6 +719,8 @@ class Runner:
             self._run_serial()
         else:
             self._run_pipelined()
+        if not self.writer:
+            return
         if "output" in self.args.tasks:
             for frame in self.seqs:
                 if os.path.exists(os.path.join(

@@ -338,30 +338,80 @@ def smplx_init_from_smpl(smplx_model, smpl_result: dict,
     )
 
 
-def fit_frames_batched_sharded(*args, **kwargs):
-    """Frame data parallelism over several devices is not ported yet
-    (ROADMAP §1 item 4): raises."""
-    raise NotImplementedError(
-        "multi-device frame batches are not ported yet (ROADMAP §1 item "
-        "4); fit on one device with fit_frames_batched")
+def _pad_frames(items: list, multiple: int) -> tuple:
+    """``items`` with the last repeated up to a multiple of ``multiple``,
+    and the count of repeats."""
+    pad = (-len(items)) % multiple
+    return list(items) + [items[-1]] * pad, pad
+
+
+def fit_frames_batched_sharded(model, config: smplify.FitConfig,
+                               obs_list: Sequence[smplify.Observations],
+                               init_list: Sequence[smplify.FitParams],
+                               pose_prior_fn, mesh=None):
+    """Data-parallel :func:`fit_frames_batched`: the batch's frames split
+    over the ``frames`` axis of a ``(frames, views)`` mesh
+    (:func:`bodyfitting_torch.parallel.sharding.make_mesh`; default: every
+    rank of the initialised world).  Every rank passes the whole batch.
+
+    Pads the batch by repeating the last frame up to a multiple of the
+    frames dimension and strips the padding from every output."""
+    from bodyfitting_torch.parallel import sharding as sh
+
+    if mesh is None:
+        mesh = sh.make_mesh(n_view_shards=1)
+    n = len(obs_list)
+    _, _, n_shards = sh.axis(mesh, "frames")
+    obs_list, _ = _pad_frames(obs_list, n_shards)
+    init_list, _ = _pad_frames(init_list, n_shards)
+    params, results, losses = sh.fit_sequence_sharded(
+        model, config, smplify.concat_frames(obs_list),
+        smplify.concat_frames(init_list), pose_prior_fn, mesh=mesh)
+    return (smplify.FitParams.from_tensors([t[:n] for t in params.tensors()]),
+            {k: v[:n] for k, v in results.items()}, losses[:n])
 
 
 def fit_sequence_batched(model, config: smplify.FitConfig,
                          obs_list: Sequence[smplify.Observations],
                          init_list: Sequence[smplify.FitParams],
-                         pose_prior_fn, tcfg=None):
+                         pose_prior_fn, tcfg=None, mesh=None):
     """The temporally coupled fit (:func:`sequence.fit_sequence`) of a
-    list of per-frame observations on one device (the JAX function's
-    device ``mesh`` is not ported: ROADMAP §1 item 4).  Returns
-    ``(results, losses [num_iters])``: the loss curve is the sequence's."""
+    list of per-frame observations, optionally split over the ``frames``
+    (and ``views``) axes of a mesh.
+
+    With a mesh, the batch is padded by repeating the last frame; the
+    padding frames carry zero weight through ``frame_valid`` (their data
+    terms and every temporal term that touches them), so the real frames
+    fit the unpadded objective.  Each rank fits its block's data terms;
+    the temporal terms couple the blocks on the gathered sequence.
+    Returns ``(results, losses [num_iters])``: the loss curve is the
+    sequence's."""
     from bodyfitting_torch.fitting import sequence as seq
 
-    obs = smplify.concat_frames(list(obs_list))
-    init = smplify.concat_frames(list(init_list))
-    _, results, losses = seq.fit_sequence(
-        model, config, obs, init, pose_prior_fn,
-        tcfg if tcfg is not None else seq.TemporalConfig())
-    return results, losses
+    tcfg = tcfg if tcfg is not None else seq.TemporalConfig()
+    n = len(obs_list)
+    if mesh is None:
+        _, results, losses = seq.fit_sequence(
+            model, config, smplify.concat_frames(list(obs_list)),
+            smplify.concat_frames(list(init_list)), pose_prior_fn, tcfg)
+        return results, losses
+
+    from bodyfitting_torch.parallel import sharding as sh
+
+    frames, _, n_shards = sh.axis(mesh, "frames")
+    views, _, _ = sh.axis(mesh, "views")
+    obs_list, pad = _pad_frames(obs_list, n_shards)
+    init_list, _ = _pad_frames(init_list, n_shards)
+    obs = smplify.concat_frames(obs_list)
+    init = smplify.concat_frames(init_list)
+    frame_valid = torch.cat([torch.ones(n), torch.zeros(pad)]).to(
+        dtype=init.global_transl.dtype, device=init.global_transl.device)
+    params, results, losses = seq.fit_sequence(
+        model, config, sh.obs_sharding(mesh, obs),
+        sh.params_sharding(mesh, init), pose_prior_fn, tcfg,
+        frame_valid=frame_valid, frame_group=frames, view_group=views)
+    _, results, _ = sh.gather_frames(mesh, params, results, losses)
+    return {k: v[:n] for k, v in results.items()}, losses
 
 
 def check_smpl_fitting(image: np.ndarray, verts, c2w, K) -> np.ndarray:

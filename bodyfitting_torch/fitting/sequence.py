@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from bodyfitting_torch.fitting import smplify
+from bodyfitting_torch.ops import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,36 +68,60 @@ def temporal_loss(params: smplify.FitParams, tcfg: TemporalConfig,
 def fit_sequence(model, config: smplify.FitConfig, obs: smplify.Observations,
                  init: smplify.FitParams, pose_prior_fn,
                  tcfg: TemporalConfig = TemporalConfig(),
-                 frame_valid: Optional[torch.Tensor] = None):
+                 frame_valid: Optional[torch.Tensor] = None,
+                 frame_group=None, view_group=None):
     """Fit the frames of ``obs`` / ``init`` (a leading frame axis) jointly
     with the temporal terms.  Returns ``(params, result dict (batched),
     losses [num_iters])``: one sequence-level loss curve, each loss taken
     before its step's update.  Uses the same reduced models as
-    :func:`smplify.fit`, so per-frame trajectories agree with it."""
+    :func:`smplify.fit`, so per-frame trajectories agree with it.
+
+    With ``frame_group``, ``obs`` / ``init`` hold this rank's block of a
+    sequence split in rank order over that process group, and
+    ``frame_valid`` covers the whole sequence: the data terms are this
+    block's, the temporal terms the whole sequence's, on parameters
+    gathered from every rank (:func:`~bodyfitting_torch.parallel.comm.
+    all_gather`, whose backward keeps this block's gradient).  The loss
+    curve is the whole sequence's, and the returned ``params`` and
+    ``result`` this block's.  ``view_group``: as in
+    :func:`smplify.fit_loss`."""
     params = smplify.FitParams.from_tensors(
         [t.detach().clone() for t in init.tensors()])
     opt = smplify.make_optimizer(config, params)
     loss_model, joints_model, mask_rows = smplify.loss_models(model, config)
     step_obs = smplify.step_observations(obs)
     leaves = opt.params
-    losses = []
+    n_local = params.global_transl.shape[0]
+    block = comm.group_rank(frame_group) * n_local
+    local_valid = (None if frame_valid is None
+                   else frame_valid[block:block + n_local])
+    data, temporal = [], []
     for step in range(config.num_iters):
         for p in leaves:
             p.requires_grad_(True)
         cur = smplify.FitParams.from_tensors(leaves)
         frame_losses, _ = smplify.fit_loss(
             loss_model, config, cur, step_obs, step, pose_prior_fn,
-            joints_model=joints_model, mask_vertex_rows=mask_rows)
-        if frame_valid is not None:
-            frame_losses = frame_losses * frame_valid
-        total = frame_losses.sum() + temporal_loss(cur, tcfg, frame_valid)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            joints_model=joints_model, mask_vertex_rows=mask_rows,
+            view_group=view_group)
+        if local_valid is not None:
+            frame_losses = frame_losses * local_valid
+        whole = smplify.FitParams.from_tensors(
+            [comm.all_gather(t, frame_group) for t in leaves])
+        data_sum = frame_losses.sum()
+        temporal_sum = temporal_loss(whole, tcfg, frame_valid)
+        grads = torch.autograd.grad(data_sum + temporal_sum, leaves,
+                                    allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         for p in leaves:
             p.requires_grad_(False)
         opt.step(grads)
-        losses.append(total.detach())
+        data.append(data_sum.detach())
+        temporal.append(temporal_sum.detach())
+    data = torch.stack(data)
+    if comm.group_size(frame_group) > 1:
+        data = comm.raw_sum(data, frame_group)
     with torch.no_grad():
         result = smplify.fit_result(model, params, obs)
-    return params, result, torch.stack(losses)
+    return params, result, data + torch.stack(temporal)

@@ -291,6 +291,7 @@ def fit_loss(
     pose_prior_fn,
     joints_model: Optional[bm.BodyModel] = None,
     mask_vertex_rows: Optional[torch.Tensor] = None,
+    view_group=None,
 ):
     """Total staged loss per frame ``[B]`` at iteration ``step``, and a
     dict of per-frame terms.
@@ -299,6 +300,8 @@ def fit_loss(
     forward then runs only for the mask term); ``mask_vertex_rows``
     marks ``model`` as a merged reduction whose rows hold the strided
     vertices the silhouette term reads (see :func:`loss_models`).
+    ``view_group``: the keypoint views are split over this process group
+    (:func:`~bodyfitting_torch.losses.keypoints.multiview_keypoint_loss`).
     """
     jm = joints_model if joints_model is not None else model
     out = bm.forward(jm, params.body)
@@ -317,6 +320,7 @@ def fit_loss(
         use_hand_face=model.model_type == "smplx",
         num_views_used=obs.num_views_used,
         view_chunk=config.view_chunk,
+        view_group=view_group,
     )
 
     if not (config.use_mask or config.use_mesh):
@@ -420,10 +424,11 @@ def step_observations(obs: Observations) -> Observations:
 
 
 def make_step_fn(model, config: FitConfig, obs: Observations,
-                 pose_prior_fn, opt: Adam):
+                 pose_prior_fn, opt: Adam, view_group=None):
     """One Adam step, shared by every entry point: ``step_fn(step)``
     updates ``opt.params`` in place and returns the per-frame loss
-    ``[B]`` before the update (detached)."""
+    ``[B]`` before the update (detached).  ``view_group``: as in
+    :func:`fit_loss`."""
     loss_model, joints_model, mask_rows = loss_models(model, config)
     obs = step_observations(obs)
     leaves = opt.params
@@ -434,7 +439,7 @@ def make_step_fn(model, config: FitConfig, obs: Observations,
         params = FitParams.from_tensors(leaves)
         loss, _ = fit_loss(loss_model, config, params, obs, step,
                            pose_prior_fn, joints_model=joints_model,
-                           mask_vertex_rows=mask_rows)
+                           mask_vertex_rows=mask_rows, view_group=view_group)
         grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -447,7 +452,7 @@ def make_step_fn(model, config: FitConfig, obs: Observations,
 
 
 def fit(model: bm.BodyModel, config: FitConfig, obs: Observations,
-        init: FitParams, pose_prior_fn):
+        init: FitParams, pose_prior_fn, view_group=None):
     """Run the staged SMPLify optimization for a batch of frames.
 
     Returns ``(final FitParams, result dict, losses [B, num_iters])``;
@@ -455,14 +460,16 @@ def fit(model: bm.BodyModel, config: FitConfig, obs: Observations,
     scan fit with ``displacement`` then runs the SMPL+D stage on the
     detached body vertices: ``result["displacement"]`` is ``[B, V, 3]``
     and the losses are ``[B, 2 num_iters]``, the body trace followed by
-    the displacement trace.
+    the displacement trace.  ``view_group``: the keypoint views are split
+    over this process group (:func:`fit_loss`).
     """
     if config.use_mesh:
         scan_frames(obs)                    # every frame has a scan
     params = FitParams.from_tensors([t.detach().clone()
                                      for t in init.tensors()])
     opt = make_optimizer(config, params)
-    step_fn = make_step_fn(model, config, obs, pose_prior_fn, opt)
+    step_fn = make_step_fn(model, config, obs, pose_prior_fn, opt,
+                           view_group)
     losses = [step_fn(i) for i in range(config.num_iters)]
     with torch.no_grad():
         result = fit_result(model, params, obs)

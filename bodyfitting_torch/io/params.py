@@ -61,3 +61,15 @@ def save_fit_outputs(output_dir: str, smpl_type: str, result: dict, faces,
         save_obj(os.path.join(output_dir, f"{smpl_type}+d.obj"),
                  res["vertices"] + _numpy(displacement).astype(np.float32),
                  res["faces"])
+
+
+def make_hmr_vec(pose, betas, cam_t, smpl_type: str) -> np.ndarray:
+    """Pack (pose, betas, cam_t) into one float32 row vector ``[1, n]``:
+    66 + 10 + 3 for SMPL-X, 72 + 10 + 3 for SMPL (the JAX package's
+    ``io/params.py:make_hmr_vec``)."""
+    n = 66 if smpl_type == "smplx" else 72
+    return np.concatenate([
+        _numpy(pose).astype(np.float32).reshape(1, n),
+        _numpy(betas).astype(np.float32).reshape(1, 10),
+        _numpy(cam_t).astype(np.float32).reshape(1, 3),
+    ], axis=1)

@@ -12,6 +12,7 @@ import torch
 
 from bodyfitting_torch.constants import NUM_BODY_KP, NUM_HAND_KP
 from bodyfitting_torch.ops.camera import perspective_projection
+from bodyfitting_torch.ops import comm
 
 # knee/elbow angle prior: body-pose indices and signs
 _ANGLE_PRIOR_IDXS = [55 - 3, 58 - 3, 12 - 3, 15 - 3]
@@ -80,6 +81,7 @@ def multiview_keypoint_loss(
     use_hand_face: bool = False,
     num_views_used=None,
     view_chunk: int = 0,
+    view_group=None,
 ):
     """Total multi-view keypoint objective per frame.
 
@@ -92,12 +94,20 @@ def multiview_keypoint_loss(
       view_chunk: when > 0 and a divisor of ``Vw``, the per-view terms are
         summed over blocks of this many views (the same objective,
         re-associated), capping the ``[B, Vw, K, 2]`` transient.
+      view_group: a process group over which the views are split, each
+        rank holding ``Vw`` of them: the per-view sums are summed over
+        it (:func:`~bodyfitting_torch.parallel.comm.sum_over`), and the
+        joints enter the rank's views through
+        :func:`~bodyfitting_torch.parallel.comm.copy_to`, so the
+        gradient counts each view once on every rank.
 
     Returns ``(loss [B], dict of per-frame terms)``.
     """
     scale_coeff = imsize / 1024.0
     Vw = w2cs.shape[1]
-    num_views = num_views_used if num_views_used is not None else float(Vw)
+    num_views = (num_views_used if num_views_used is not None
+                 else float(Vw * comm.group_size(view_group)))
+    model_joints = comm.copy_to(model_joints, view_group)
 
     if view_chunk and 0 < view_chunk < Vw and Vw % view_chunk == 0:
         blocks = [slice(i, i + view_chunk) for i in range(0, Vw, view_chunk)]
@@ -113,6 +123,10 @@ def multiview_keypoint_loss(
         sums = part if sums is None else [
             None if a is None else a + b for a, b in zip(sums, part)
         ]
+    if comm.group_size(view_group) > 1:
+        n = sum(t is not None for t in sums)
+        sums = list(comm.sum_over(torch.stack(sums[:n]), view_group)) \
+            + [None] * (3 - n)
     body_loss = sums[0] / num_views
     zero = torch.zeros_like(body_loss)
     hand_loss = sums[1] / num_views if use_hand_face else zero

@@ -10,6 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from bodyfitting_torch.ops.gather import (
+    cached_row_index,
+    gather_rows,
+    scatter_rows,
+)
 from bodyfitting_torch.ops.nearest import nearest_points
 
 
@@ -30,16 +35,19 @@ def compute_vertex_normals(verts: torch.Tensor,
     corners, and normalised again, so every incident face votes with
     equal weight.
 
-    The sum is ``index_add``: sequential on the CPU, atomic (so not
-    bitwise repeatable) on a CUDA device."""
-    faces = faces.long()
-    tris = verts[faces]                                    # [F, 3, 3]
+    Each vertex sums its faces in the JAX function's order (corner by
+    corner, ascending faces), and the corner gather's backward sums in
+    ascending (face, corner) order (:mod:`ops.gather`; the indices built
+    once per ``faces`` tensor): no atomics, so a CUDA device gives the
+    same bits on every call."""
+    F = faces.shape[0]
+    V = verts.shape[0]
+    tris = gather_rows(verts, cached_row_index(faces, V)).reshape(F, 3, 3)
     fn = _unit(torch.linalg.cross(tris[:, 1] - tris[:, 0],
                                   tris[:, 2] - tris[:, 0], dim=-1))
-    vn = torch.zeros_like(verts)
-    for k in range(3):
-        vn = vn.index_add(0, faces[:, k], fn)
-    return _unit(vn)
+    corners = fn[None].expand(3, F, 3).reshape(3 * F, 3)
+    return _unit(scatter_rows(corners,
+                              cached_row_index(faces, V, transpose=True)))
 
 
 def compute_face_normals(verts: torch.Tensor,
@@ -80,9 +88,12 @@ def normal_loss(points: torch.Tensor, point_normals: torch.Tensor,
 def normal_laplacian_smoothness(normals: torch.Tensor,
                                 faces: torch.Tensor) -> torch.Tensor:
     """Mean squared difference of the normals along each triangle's three
-    edges."""
-    faces = faces.long()
-    na, nb, nc = (normals[faces[:, k]] for k in range(3))
+    edges (the corner gather's backward in a fixed order, as in
+    :func:`compute_vertex_normals`)."""
+    F = faces.shape[0]
+    tri = gather_rows(normals, cached_row_index(faces, normals.shape[0]))
+    tri = tri.reshape(F, 3, 3)
+    na, nb, nc = tri[:, 0], tri[:, 1], tri[:, 2]
 
     def mse(x, y):
         return ((x - y) ** 2).sum(-1)

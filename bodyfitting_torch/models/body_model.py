@@ -22,6 +22,7 @@ import torch
 
 from bodyfitting_torch.device import default_device
 from bodyfitting_torch.ops.rotations import rodrigues
+from bodyfitting_torch.ops import comm
 
 
 def smpl_to_openpose(
@@ -106,6 +107,9 @@ class BodyModel:
     hand_use_pca: bool = True
     flat_hand_mean: bool = False
     use_face_contour: bool = False
+    # the process group over whose ranks the vertex axis is split
+    # (parallel/tensor.py:shard_model_vertices); None: every vertex here
+    tp_group: object = None
 
     @property
     def num_verts(self) -> int:
@@ -321,25 +325,32 @@ def _use_fused_skinning(model: BodyModel) -> bool:
 
 def lbs(model: BodyModel, params: BodyParams):
     """Linear blend skinning.  Returns ``(vertices [B,V,3],
-    skeleton_joints [B,J,3], full_pose [B,J*3])``."""
+    skeleton_joints [B,J,3], full_pose [B,J*3])``.
+
+    On a vertex-sharded model (``model.tp_group``) the vertices are this
+    rank's rows: the replicated coefficients enter the local bases
+    through :func:`~bodyfitting_torch.parallel.comm.copy_to` and the
+    joint regression is summed over the group (the identities without a
+    group)."""
+    tp = model.tp_group
     full_pose_aa = _full_pose(model, params)
     B = full_pose_aa.shape[0]
 
-    shape_betas = (
-        params.betas[:, :-1] if model.kid_shape_dir is not None
-        else params.betas
-    )
+    betas = comm.copy_to(params.betas, tp)
+    shape_betas = betas[:, :-1] if model.kid_shape_dir is not None else betas
     v_shaped = model.v_template + blend_shapes(shape_betas, model.shapedirs)
     if model.num_expressions and model.expr_dirs is not None:
-        v_shaped = v_shaped + blend_shapes(params.expression, model.expr_dirs)
+        v_shaped = v_shaped + blend_shapes(
+            comm.copy_to(params.expression, tp), model.expr_dirs)
     if model.kid_shape_dir is not None:
-        v_shaped = v_shaped + params.betas[:, -1:, None] * (
+        v_shaped = v_shaped + betas[:, -1:, None] * (
             model.kid_shape_dir.reshape(-1, 3)
         )
 
     if model.J_template is not None:
         rest_joints = model.J_template + blend_shapes(
-            shape_betas, model.J_shapedirs
+            params.betas[:, :-1] if model.kid_shape_dir is not None
+            else params.betas, model.J_shapedirs
         )
         if model.num_expressions and model.J_exprdirs is not None:
             rest_joints = rest_joints + blend_shapes(
@@ -350,11 +361,12 @@ def lbs(model: BodyModel, params: BodyParams):
                 model.J_kid_dir.reshape(-1, 3)
             )
     else:
-        rest_joints = vertices2joints(model.J_regressor, v_shaped)
+        rest_joints = comm.sum_over(
+            vertices2joints(model.J_regressor, v_shaped), tp)
 
     rot_mats = rodrigues(full_pose_aa.reshape(B, -1, 3))        # [B,J,3,3]
     eye = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
-    pose_feature = (rot_mats[:, 1:] - eye).reshape(B, -1)
+    pose_feature = comm.copy_to((rot_mats[:, 1:] - eye).reshape(B, -1), tp)
     v_posed = v_shaped + blend_shapes(pose_feature, model.posedirs)
 
     posed_joints, rel_tf = rigid_transform_chain(
@@ -363,7 +375,7 @@ def lbs(model: BodyModel, params: BodyParams):
     # Skinning: the fused kernel when switched on, else one matmul
     # W @ A12 plus a 3x4 apply, as the JAX package does with its kernel
     # off (its default).
-    A12 = rel_tf.reshape(B, model.num_joints, 12)
+    A12 = comm.copy_to(rel_tf.reshape(B, model.num_joints, 12), tp)
     if _use_fused_skinning(model):
         from bodyfitting_torch.ops.kernels.skinning import fused_skinning
 
@@ -375,8 +387,12 @@ def lbs(model: BodyModel, params: BodyParams):
 
 
 def forward(model: BodyModel, params: BodyParams) -> BodyOutput:
-    """Full forward pass including auxiliary joints (batched over B)."""
-    verts, skel_joints, full_pose_aa = lbs(model, params)
+    """Full forward pass including auxiliary joints (batched over B).  A
+    vertex-sharded model returns every rank's vertices, gathered, as
+    ``[B, V_pad, 3]``: faces, selector ids and landmarks index the whole
+    mesh."""
+    local, skel_joints, full_pose_aa = lbs(model, params)
+    verts = comm.all_gather(local, model.tp_group, dim=1)
     joints = skel_joints
     if model.selector_ids is not None:
         joints = torch.cat([joints, verts[:, model.selector_ids]], dim=1)
@@ -386,7 +402,9 @@ def forward(model: BodyModel, params: BodyParams) -> BodyOutput:
         )
     joints_raw = joints
     if model.model_type == "smpl" and model.extra_joint_regressor is not None:
-        extra = vertices2joints(model.extra_joint_regressor, verts)
+        extra = comm.sum_over(
+            vertices2joints(model.extra_joint_regressor, local),
+            model.tp_group)
         joints = torch.cat([joints, extra], dim=1)
     if model.joint_mapper is not None:
         joints = joints[:, model.joint_mapper]

@@ -10,7 +10,7 @@ Only textures (and attributes) are differentiated: the z-buffer's face
 assignment is a constant, the barycentric post-pass is plain PyTorch
 (differentiable in the corners, as the JAX one), and the texture
 gradient of :func:`bilinear_sample_uv` is the scatter-add of its gather,
-summed in a fixed order on the card too (:class:`_Gather`).
+summed in a fixed order on the card too (:mod:`ops.gather`).
 :func:`soft_silhouette` is the SoftRas-style coverage, differentiable in
 the vertices, in plain PyTorch (XLA in the JAX package, no kernel there).
 """
@@ -22,6 +22,11 @@ from typing import NamedTuple
 import torch
 
 from bodyfitting_torch.ops import kernels as K
+from bodyfitting_torch.ops.gather import (
+    cached_row_index,
+    gather_rows,
+    row_index,
+)
 
 EPS = 1e-9
 FAR = 1e9
@@ -36,13 +41,20 @@ class RasterOut(NamedTuple):
 def project_faces(verts: torch.Tensor, faces: torch.Tensor,
                   w2c: torch.Tensor, K_: torch.Tensor):
     """World vertices -> per-face screen coords and camera depths:
-    ``(face_px [F, 3, 2], face_z [F, 3])``."""
+    ``(face_px [F, 3, 2], face_z [F, 3])``.  When ``verts`` needs a
+    gradient, the corner gather's backward sums in a fixed order
+    (:mod:`ops.gather`), as the vertex normals' does."""
     R, t = w2c[:3, :3], w2c[:3, 3]
     cam = verts @ R.T + t
     z = cam[:, 2]
     proj = cam @ K_.T
     px = proj[:, :2] / torch.clamp(proj[:, 2:3], min=EPS)
-    return px[faces], z[faces]
+    if not verts.requires_grad:
+        return px[faces], z[faces]
+    index = cached_row_index(faces, verts.shape[0])
+    F = faces.shape[0]
+    return (gather_rows(px, index).reshape(F, 3, 2),
+            gather_rows(z, index).reshape(F, 3))
 
 
 def _edge(a, b, p):
@@ -132,39 +144,17 @@ def interpolate_uvs(raster: RasterOut, face_uvs: torch.Tensor) -> torch.Tensor:
     return uvs.reshape(H, W, 2)
 
 
-class _Gather(torch.autograd.Function):
-    """``table[idx]`` (rows), whose backward sums the cotangent rows that
-    share an index in ascending position, as autograd's ``index_put_``
-    with ``accumulate`` does on the CPU: a stable sort of the indices,
-    then one sum over each run.  On a CUDA device ``index_put_``'s float
-    atomics would sum colliding rows in launch order, and the texture
-    fit's Adam turns a last-bit difference at a texel whose gradient
-    cancels into a whole step; in this order a rerun of a fit gives the
-    same texture."""
-
-    @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = table.shape[0]
-        return table[idx]
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        out = grad.new_zeros((ctx.rows,) + grad.shape[1:])
-        if idx.numel() == 0:
-            return out, None
-        rows, order = torch.sort(idx, stable=True)
-        rows, counts = torch.unique_consecutive(rows, return_counts=True)
-        out[rows] = torch.segment_reduce(grad[order], "sum", lengths=counts)
-        return out, None
-
-
 def bilinear_sample_uv(texture: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor:
     """Bilinear texture lookup at UVs ``[..., 2]`` (OBJ convention: v up).
 
     A gather from the row-flattened texture; differentiable w.r.t. the
-    texture (:class:`_Gather`'s scatter-add) and the UVs.
+    texture and the UVs.  The texture's gradient sums the cotangent rows
+    of each texel in ascending position (:func:`ops.gather.gather_rows`),
+    as autograd's ``index_put_`` with ``accumulate`` does on the CPU.  On
+    a CUDA device ``index_put_``'s float atomics would sum colliding rows
+    in launch order, and the texture fit's Adam turns a last-bit
+    difference at a texel whose gradient cancels into a whole step; in
+    this order a rerun of a fit gives the same texture.
     """
     Th, Tw = texture.shape[:2]
     tex_flat = texture.reshape(Th * Tw, -1)
@@ -179,7 +169,10 @@ def bilinear_sample_uv(texture: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor
     wy = torch.clamp(y - y0, 0.0, 1.0)[:, None]
 
     def tap(xi, yi):
-        return _Gather.apply(tex_flat, yi.long() * Tw + xi.long())
+        idx = yi.long() * Tw + xi.long()
+        if not tex_flat.requires_grad:
+            return tex_flat[idx]
+        return gather_rows(tex_flat, row_index(idx, tex_flat.shape[0]))
 
     val = (tap(x0, y0) * (1 - wx) * (1 - wy)
            + tap(x1, y0) * wx * (1 - wy)
@@ -286,7 +279,9 @@ class _SoftLogBackground(torch.autograd.Function):
                     chunk = fpx[sel].detach().requires_grad_(True)
                     val = _soft_log_bg(chunk, pix, sigma)
                     (gc,) = torch.autograd.grad(val, [chunk], g)
-                    out.index_add_(0, sel, gc)
+                    # a tile's faces are distinct: one add a row a
+                    # chunk, in tile and chunk order (no atomics)
+                    out[sel] = out[sel] + gc
         return out, None, None, None, None
 
 

@@ -3,9 +3,8 @@
 Counterpart of ``bodyfitting_tpu/utils/observability.py``:
 :class:`LossTrace` appends each fitted frame's loss curve to a JSONL file
 (``loss_trace.jsonl``); :class:`StageTimer` and :func:`timed` record wall
-time per pipeline stage (``timing.json`` under ``--timing``).  The JAX
-profiler wrapper has no counterpart here: ``chip_smoke.py --profile``
-traces with ``torch.profiler``.
+time per pipeline stage (``timing.json`` under ``--timing``);
+:func:`profiler_trace` records a ``torch.profiler`` trace of a block.
 """
 
 from __future__ import annotations
@@ -97,3 +96,21 @@ def timed(name: str, log=print):
         yield
     finally:
         log(f"[timing] {name}: {time.perf_counter() - t0:.3f}s")
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """Trace the block with ``torch.profiler`` (host, and the card's
+    kernels when CUDA is available) and write it as a Chrome trace,
+    ``log_dir/trace.json`` (open it in Perfetto or ``chrome://tracing``).
+    Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

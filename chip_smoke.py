@@ -8,7 +8,8 @@ CUDA card, ``nvcc`` (``/usr/local/cuda``) and scipy:
 
 ``--save-volume NPZ`` also writes the scan problem, its distance volume
 and the SDF fit's result, for ``python -m tests.scan_fit_vs_jax NPZ``
-(the same fit by the JAX package on the CPU).
+(the same fit by the JAX package on the CPU); ``--save-rp NPZ`` phase
+10's scan and joints, for ``python -m tests.rp_mask_fit_vs_jax NPZ``.
 
 Phases; the first failure ends the run with a non-zero exit code:
 
@@ -112,7 +113,12 @@ Phases; the first failure ends the run with a non-zero exit code:
    --auto_uv --inpaint --disp_map --debug --timing``, 600 + 600 fit
    iterations, 200 texture iterations; (b) ``--tasks texfit output`` on
    (a)'s output directory (its cached views and fit); (c) ``--use_mask
-   --tasks smplify``, 120 iterations.  The counters are zeroed around each
+   --tasks smplify``, 120 iterations; (a2) (a)'s smplify and smpld tasks
+   again in a fresh directory, whose parameters must equal (a)'s bit for
+   bit (SMPL+D sums in a fixed order), and the vertex normals with their
+   gradient on (a)'s SMPL+D, two calls bitwise equal.  ``--save-rp NPZ``
+   keeps the scan and its joints for ``python -m
+   tests.rp_mask_fit_vs_jax NPZ``.  The counters are zeroed around each
    run and held to the counts the code gives: (a) 14 ``nearest_d2_idx``
    (the 96^3 volume), 81 ``rasterize_zbuf`` (8 views, the 1024^2 atlas,
    2 x 36 ``render_compare`` views), 256 ``rasterize_attrs``; (b) 0 / 73 /
@@ -165,7 +171,12 @@ Phases; the first failure ends the run with a non-zero exit code:
    96^3 volumes and the 600 + 600 SDF fit, then the exact route's 90 + 90;
    scan 0 against phase 6's fit, scan 1's distance to its scan against
    phase 6's, the nearest kernel at scan 1's last query against its plain
-   version, timed.  (c) ``render_fit_overlays`` of phase 9's keypoint fit
+   version, timed; frame 0 alone against frame 0 of the batch at the
+   first step and after the gate (forward, each loss term, each
+   parameter's gradient), bitwise, which names the sums that round
+   otherwise at B 2; the body and displacement sha1s of phase 6's fit
+   and of scan 0, for comparing runs.  (c) ``render_fit_overlays`` of
+   phase 9's keypoint fit
    on its 2448 x 2048 views (every 12th): each z-buffer launch against the
    plain version, timed; the card against the CPU on one view at 1/4
    size.  (d) ``soft_silhouette`` of phase 3's body at 512^2, forward and
@@ -177,9 +188,34 @@ Phases; the first failure ends the run with a non-zero exit code:
    counts the code gives: 2 ``skin_forward``; 28 and 298
    ``nearest_d2_idx``; 4 ``rasterize_zbuf``.
 
+13. the multi-device fits (``bodyfitting_torch/parallel``): (a) a world
+   of one on NCCL: ``fit_sequence_sharded`` on
+   ``make_production_fit_problem`` (8 frames, SMPL-X at 10,475 vertices,
+   4 views, 2 masks of 128^2, the 24^3 volume, 60 iterations) bitwise
+   ``fit_frames_batched`` on the same inputs, the gate's loss jump above
+   1.5x, both timed; the counters zeroed before the problem's volume
+   build and read after the sharded fit.  (b) two ranks spawned on card
+   0 over gloo (NCCL refuses two ranks on one card): the 2x1 and 1x2
+   meshes against (a)'s single-device fit (pre-gate losses to 1e-3, the
+   last to 0.2, as the JAX package's hardware check), each rank's 2x1
+   block bitwise its block fitted alone; the collectives counted, and a
+   step's and the end gathers replayed and timed.  (c) the temporal fit
+   of 3 frames over 2x1 (one padding frame) against the unsharded
+   temporal fit: every step's loss and the vertices to 1e-4 relative.
+   (d) the SMPL-X forward vertex-sharded over the two ranks (auto-padded
+   to 10,476) under ``FUSED_SKINNING = "on"`` against the whole model's
+   plain forward (2e-5), pad rows exactly 0, each rank's
+   ``skin_forward`` launch (5,238 rows) held bitwise against its plain
+   version on its inputs and timed on rank 0.  (e) phase 9's keypoint
+   run on 2 frames with and without ``--data_parallel`` (a world of
+   one): equal parameter sha1s.  (f) the three silhouette kernels at
+   (a)'s last step and the nearest kernel at the 24^3 build, each
+   bitwise its plain version, timed beside the library call and the
+   bound (the kernel table's rows with ``"phase": 13``, with (d)'s).
+
 The line before the last is the kernel table as one JSON object (phase
-12's three rows carry a ``phase`` key); the last line is ``{"ok": true,
-"device": {...}}``.
+12's three rows and phase 13's five carry a ``phase`` key); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1226,7 +1262,7 @@ def check_bilinear(calls):
                 shape=f"stay-inside BV {BV} N {head['N']}", shapes=shapes)
 
 
-def check_bilinear_full(calls):
+def check_bilinear_full(calls, where="rp app (c)"):
     """The sampler at the two calls a full-mask fit step makes (the
     RenderPeople app's ``--use_mask``): f32 masks ``[BV, H, W]``, the
     stay-inside sample with coverage and derivatives, and the
@@ -1249,10 +1285,10 @@ def check_bilinear_full(calls):
         same = torch.equal(got, ref)
         BV, H, W = img.shape
         N = pts.shape[1]
-        log(f"bilinear_cov_grads rp app (c) {what} (BV {BV}, {H}x{W} f32 "
+        log(f"bilinear_cov_grads {where} {what} (BV {BV}, {H}x{W} f32 "
             f"full masks, N {N}, {kw}): bitwise equal to plain: {same} "
             f"(tol: exact)")
-        assert same, f"bilinear_cov_grads differs (rp app (c) {what})"
+        assert same, f"bilinear_cov_grads differs ({where} {what})"
         err = float((got - ref).abs().max())
         geo = bilinear.kernel_geometry(BV, N)
         ms = cuda_ms(lambda: K.bilinear_cov_grads(img, pts, **kw))
@@ -1267,7 +1303,7 @@ def check_bilinear_full(calls):
             img[:, None], grid, mode="bilinear", padding_mode="zeros",
             align_corners=True))
         b, by, _, near, taps = bilinear_bound(img, pts)
-        log(f"bilinear_cov_grads rp app (c) {what} launch {geo}: {ms:.5f} "
+        log(f"bilinear_cov_grads {where} {what} launch {geo}: {ms:.5f} "
             f"ms warm, {cold:.5f} cold (median of 200, mean "
             f"{cold_mean:.5f}); plain {plain:.4f} ms, grid_sample (sample "
             f"only) {lib:.5f} ms, bound {b:.5f} ms ({by}); {near} of "
@@ -1463,6 +1499,9 @@ def phase_scan(size=SCAN_PATH, device="cuda", n_time=40, smi="",
     assert np.isfinite(losses).all(), "non-finite loss"
     disp = result["displacement"]
     assert disp.shape == (V, 3) and torch.isfinite(disp).all()
+    log(f"scan SDF fit: body vertices sha1 {tensor_sha1(result['vertices'])}"
+        f", displacements sha1 {tensor_sha1(disp)} (the same on every run: "
+        f"no sum of the fit depends on launch order)")
     models = smplify.loss_models(model, config)
     pc = [float(smplify.fit_loss(models[0], config, params, obs, s, prior,
                                  joints_model=models[1])[1]["pc_loss"][0])
@@ -1973,6 +2012,9 @@ APP_PATH = dict(num_verts=10475, capture=(2448, 2048), focal=3600.0,
                 dist=2.0, load_size=512, frames=16, batch=8, mask_frames=8,
                 num_iters=600, temporal_iters=600, splat=4, hmr=True,
                 bench_batch=128,
+                # phase 13 (e): the keypoint run with and without
+                # --data_parallel, cut in frames and depth
+                dp_frames=2, dp_iters=120,
                 # the largest mean reprojection error of a frame (px of the
                 # 512^2 crops): twice the CPU rehearsal's worst frame
                 # (9.9 / 27.9 / 10.2 px; the mask fit ends worse, as in
@@ -2129,10 +2171,11 @@ def write_keypoint_jsons(out_dir, kps, frames):
                                    for k, b in person.items()}]}, fh)
 
 
-def subject_of_first_frames(root, subject_dir, n):
-    """A second subject whose frame listing holds the first ``n`` frames;
-    masks, keyframe images and cameras are the first subject's (links)."""
-    dst = os.path.join(root, "genebody8", SUBJECT)
+def subject_of_first_frames(root, subject_dir, n, name="genebody8"):
+    """A second subject (under ``root/name``) whose frame listing holds the
+    first ``n`` frames; masks, keyframe images and cameras are the first
+    subject's (links)."""
+    dst = os.path.join(root, name, SUBJECT)
     os.makedirs(os.path.join(dst, "image", "00"))
     os.symlink(os.path.join(subject_dir, "annots.npy"),
                os.path.join(dst, "annots.npy"))
@@ -2274,6 +2317,12 @@ SKIN_BEFORE_US = {(8, 564): (15.1, 22.6), (8, 3035): (15.9, 25.1),
                   (8, 10475): (18.5, 38.3), (128, 10475): (213.6, 427.0)}
 
 
+def tensor_sha1(t):
+    """sha1 of a tensor's bytes (on the host)."""
+    return hashlib.sha1(np.ascontiguousarray(
+        t.detach().cpu().numpy()).tobytes()).hexdigest()
+
+
 def params_sha1(params):
     """sha1 of an app run's fitted parameters: every frame's arrays, in
     frame and key order."""
@@ -2327,6 +2376,49 @@ def time_skinning(W, A, vp, g):
                                                  retain_graph=True),
                      reps=reps)
     return dict(fwd=(ms_f, plain_f, auto_f), bwd=(ms_b, plain_b, auto_b))
+
+
+def skin_forward_row(W, A, vp, launches, phase, on_card, timed=True):
+    """The kernel table's ``skin_forward`` row at ``(W, A, vp)``: the
+    kernel held bitwise against its plain version (tol: exact), and, on
+    the card with ``timed``, timed beside its plain version, the "auto"
+    path (``matmul`` + ``einsum``) and its bound.  ``launches`` is the
+    count of the path's run, read before this call."""
+    import torch
+
+    from bodyfitting_torch.ops import kernels as K
+
+    out = K.skin_forward(W, A, vp)
+    ref = K.skin_forward_plain(W, A, vp)
+    same = torch.equal(out, ref)
+    err = float((out - ref).abs().max())
+    B, V, J = vp.shape[0], vp.shape[1], W.shape[1]
+    log(f"skin_forward at {phase} (B {B}, V {V}, J {J}): bitwise equal to "
+        f"the plain version: {same} (tol: exact); max abs err {err:.3e}")
+    assert same, f"skin_forward differs from its plain version ({phase})"
+    row = dict(name="skin_forward", route="cuda",
+               source=SOURCES["skin_forward"],
+               replaces=TPU_KERNELS["skin_forward"], launches=launches,
+               max_abs_err=err, ms=None, plain_ms=None, bound_ms=None,
+               bound_by=None, library_ms=None, phase=phase,
+               shape=f"B {B} V {V}")
+    if on_card and timed:
+        ms = cuda_ms(lambda: K.skin_forward(W, A, vp), reps=20)
+        plain = cuda_ms(lambda: K.skin_forward_plain(W, A, vp), reps=2,
+                        warmup=1)
+
+        def auto():
+            T = torch.matmul(W, A).reshape(B, V, 3, 4)
+            return torch.einsum("bvij,bvj->bvi", T[..., :3], vp) + T[..., 3]
+
+        lib = cuda_ms(auto, reps=20)
+        b, by = skin_bound(B, V, J, False)
+        log(f"skin_forward ({phase}) B {B} V {V}: {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, \"auto\" (matmul + einsum) {lib:.4f} ms, "
+            f"bound {b:.5f} ms ({by})")
+        row.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                   library_ms=lib)
+    return row
 
 
 def check_skin_kernels(rec, device, bench_batch, seed=0):
@@ -2483,6 +2575,21 @@ def phase_app(size=APP_PATH, device="cuda", smi=""):
 
         rows, err = check_skin_kernels(rec, device, size["bench_batch"])
         onoff = check_on_off(runs["use_mask"]["fit"], device)
+        # phase 13 (e): the keypoint run on the first frames with
+        # --data_parallel (a world of one) against the same run without
+        n_dp = size["dp_frames"]
+        root_dp = subject_of_first_frames(root, subject["sub"], n_dp,
+                                          "genebody_dp")
+        dp = dict(frames=n_dp)
+        for name, extra in (("single", []), ("dp", ["--data_parallel"])):
+            out = os.path.join(root, "out_dp_" + name)
+            write_keypoint_jsons(out, subject["kps"], set(range(n_dp)))
+            wall, _, _ = run_app(argv0 + [
+                "--target_dir", root_dp, "--output_dir", out, "--tasks",
+                "smplify", "output", "--num_iters", str(size["dp_iters"])]
+                + extra, device)
+            params, _, _ = read_app_outputs(out, list(range(n_dp)))
+            dp[name], dp[name + "_s"] = params_sha1(params), wall
         # what phase 12 (c) overlays: frame 0 of the keypoint run, at the
         # JAX cadence (every 12th view), over grey-person images
         from bodyfitting_torch.io.png import read_png
@@ -2498,7 +2605,7 @@ def phase_app(size=APP_PATH, device="cuda", smi=""):
             images=[np.repeat((masks[v] // 2)[..., None], 3, 2)
                     if v in masks else None for v in range(48)])
         return dict(runs=runs, rows=rows, err=err, onoff=onoff,
-                    overlay=overlay,
+                    overlay=overlay, data_parallel=dp,
                     subject=dict(write_s=subject["write_s"],
                                  encode_ms=subject["encode_ms"],
                                  decode_ms=subject["decode_ms"]))
@@ -2641,20 +2748,25 @@ def cylinder_uvs(verts):
     return np.stack([u, v], 1).astype(np.float32)
 
 
-def write_rp_scans(root, model, size, seed=0):
+def write_rp_scans(root, model, size, seed=0, scan=None):
     """A RenderPeople directory with one scan: the scan phase's problem for
-    ``model`` written as ``scans/<subject>/<subject>.obj`` (``v``, ``vt``,
+    ``model`` (or ``scan``, its ``(verts, faces, joints)`` as a card made
+    them) written as ``scans/<subject>/<subject>.obj`` (``v``, ``vt``,
     ``f v/vt``) with an MTL whose ``map_Kd`` names the committed 2048^2
     JPEG, copied to ``tex/``.  Returns the scan as the app loads it, the
-    ground truth's joints, and the OBJ parse and JPEG decode times."""
+    ground truth's joints, the scan's arrays, and the OBJ parse and JPEG
+    decode times."""
     import shutil
 
     from bodyfitting_torch.io.images import imread_checked
     from bodyfitting_torch.io.obj import load_obj, save_obj_uv
 
-    *_, sv, sf, joints = make_scan_problem(
-        model, size["viewnum"], size["load_size"], size["subdivisions"],
-        seed=seed, with_joints=True)
+    if scan is None:
+        *_, sv, sf, joints = make_scan_problem(
+            model, size["viewnum"], size["load_size"], size["subdivisions"],
+            seed=seed, with_joints=True)
+    else:
+        sv, sf, joints = scan
     d = os.path.join(root, "scans", RP_SUBJECT)
     os.makedirs(os.path.join(d, "tex"))
     obj = os.path.join(d, RP_SUBJECT + ".obj")
@@ -2674,8 +2786,79 @@ def write_rp_scans(root, model, size, seed=0):
     scan = load_obj(obj, load_texture=True)
     assert scan.texture.shape == (2048, 2048, 3)
     return dict(scan=scan, joints=joints, obj=obj, write_s=write_s,
-                parse_s=parse_s, decode_s=decode_s,
+                arrays=(sv, sf, joints), parse_s=parse_s, decode_s=decode_s,
                 obj_mib=os.path.getsize(obj) / 2 ** 20)
+
+
+def normals_ms(verts, faces, ordered):
+    """Host-clock ms of the vertex normals and the smoothness term,
+    forward and backward: the port's fixed-order sums, or the same
+    function through ``index_add`` and autograd's gathers (atomic on
+    the card)."""
+    import torch
+
+    from bodyfitting_torch.losses import mesh
+
+    def atomic(v):
+        f = faces.long()
+        tris = v[f]
+        fn = mesh._unit(torch.linalg.cross(tris[:, 1] - tris[:, 0],
+                                           tris[:, 2] - tris[:, 0], dim=-1))
+        vn = torch.zeros_like(v)
+        for k in range(3):
+            vn = vn.index_add(0, f[:, k], fn)
+        vn = mesh._unit(vn)
+        na, nb, nc = (vn[f[:, k]] for k in range(3))
+        return vn.sum() + (((na - nb) ** 2).sum(-1) + ((nc - na) ** 2).sum(-1)
+                           + ((nb - nc) ** 2).sum(-1)).mean()
+
+    def port(v):
+        vn = mesh.compute_vertex_normals(v, faces)
+        return vn.sum() + mesh.normal_laplacian_smoothness(vn, faces)
+
+    fn = port if ordered else atomic
+
+    def once():
+        v = verts.clone().requires_grad_(True)
+        torch.autograd.grad(fn(v), [v])
+
+    return host_ms(once, reps=20)
+
+
+@contextlib.contextmanager
+def keep_volume(store):
+    """Keeps each distance volume the app builds."""
+    from bodyfitting_torch.ops import sdf
+
+    orig = sdf.build_distance_volume
+
+    def wrapped(*a, **kw):
+        store.append(orig(*a, **kw))
+        return store[-1]
+
+    sdf.build_distance_volume = wrapped
+    try:
+        yield store
+    finally:
+        sdf.build_distance_volume = orig
+
+
+def save_rp_inputs(path, arrays, out_dir, size, volume):
+    """Phase 10 (c)'s inputs that the card made: the scan and its joints,
+    the rendered views the app cached, and its distance volume."""
+    from bodyfitting_torch.io.png import read_png
+
+    sv, sf, joints = arrays
+    sub = os.path.join(out_dir, RP_SUBJECT)
+    views = {d: np.stack([read_png(os.path.join(sub, d, "%02d.png" % i))
+                          for i in range(size["viewnum"])])
+             for d in ("images", "masks")}
+    np.savez_compressed(path, scan_verts=sv, scan_faces=sf, joints=joints,
+                        **views, **{f"vol_{k}": getattr(volume, k).cpu()
+                                    .numpy() for k in ("dist", "face_idx",
+                                                       "origin", "spacing")})
+    log(f"rp app: run (c)'s scan, joints, views and volume saved to {path} "
+        f"(for tests/rp_mask_fit_vs_jax.py)")
 
 
 def check_jpeg_fixtures():
@@ -2770,7 +2953,7 @@ def read_rp_outputs(out_dir, size, tasks, debug):
     return params, trace
 
 
-def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
+def phase_rp_app(size=RP_APP_PATH, device="cuda", smi="", save_rp=None):
     """The RenderPeople app end to end on a synthetic scan: (a) the scan fit
     with SMPL+D, the texture fit and every output, (b) texfit and output on
     (a)'s caches, (c) the --use_mask scan fit."""
@@ -2836,6 +3019,12 @@ def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
             ("b", out_a, ["--tasks", "texfit", "output"] + texfit,
              dict(nearest_d2_idx=0, rasterize_zbuf=1 + 2 * 36,
                   rasterize_attrs=2 * n_uniq)),
+            # (a)'s fit again in a fresh directory: SMPL+D sums in a fixed
+            # order, so its parameters are (a)'s bit for bit
+            ("a2", os.path.join(root, "out_a2"),
+             ["--tasks", "smplify", "smpld", "--num_iters",
+              str(size["num_iters"])],
+             dict(nearest_d2_idx=n_vol, rasterize_zbuf=size["viewnum"])),
             ("c", out_c, ["--use_mask", "--tasks", "smplify", "--num_iters",
                           str(size["mask_iters"])],
              dict(nearest_d2_idx=n_vol, rasterize_zbuf=size["viewnum"],
@@ -2845,6 +3034,7 @@ def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
         clean = {}
         runs = {}
         captured = {}      # run (c)'s last silhouette kernel calls
+        volumes = []       # run (c)'s distance volume
 
         def keep_last(kernel, fn):
             def wrapped(*a, **kw):
@@ -2864,7 +3054,9 @@ def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
                       else None)
             argv = base + ["--output_dir", out] + extra
             with (silhouette_ops(keep_last) if name == "c"
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), \
+                    (keep_volume(volumes) if name == "c"
+                     else contextlib.nullcontext()):
                 wall, counts, runner = run_app(argv, device, app)
             tasks = extra[extra.index("--tasks") + 1:]
             tasks = tasks[:next((i for i, t in enumerate(tasks)
@@ -2899,6 +3091,14 @@ def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
                 assert r["smpl_png_equal"], "run (b)'s texture differs"
             runs[name] = r
 
+        if save_rp:
+            save_rp_inputs(save_rp, data["arrays"], out_c, size,
+                           volumes[-1])
+        log(f"rp app run (a2): the smplify and smpld tasks of (a) rerun: "
+            f"parameters sha1 {runs['a2']['params_sha1']} (run (a): "
+            f"{runs['a']['params_sha1']})")
+        assert runs["a2"]["params_sha1"] == runs["a"]["params_sha1"], \
+            "SMPL+D is not repeatable"
         # run (a)'s fit against the ground truth and the scan
         pa = np.load(os.path.join(out_a, RP_SUBJECT, "smplify",
                                   "smpl_parameter.npy"),
@@ -2907,6 +3107,27 @@ def phase_rp_app(size=RP_APP_PATH, device="cuda", smi=""):
         sv_t = torch.as_tensor(scan.verts, device=dev)
         sf_t = torch.as_tensor(scan.faces.astype(np.int64), device=dev)
         smpld = pa["vertices"] + pa["displacement"]
+        # the vertex normals and their gradient, twice, bitwise
+        from bodyfitting_torch.losses.mesh import (
+            compute_vertex_normals, normal_laplacian_smoothness)
+
+        twice = []
+        for _ in range(2):
+            v = torch.as_tensor(smpld, device=dev).requires_grad_(True)
+            vn = compute_vertex_normals(v, model.faces)
+            loss = vn.sum() + normal_laplacian_smoothness(vn, model.faces)
+            twice.append((vn.detach(), torch.autograd.grad(loss, [v])[0]))
+        same = all(torch.equal(a, b) for a, b in zip(*twice))
+        log(f"rp app: compute_vertex_normals and the smoothness term on "
+            f"(a)'s SMPL+D ({len(smpld)} vertices), value and gradient, two "
+            f"calls bitwise equal: {same} (tol: exact)")
+        assert same, "vertex normals differ from call to call"
+        if on_card:
+            log(f"rp app: normals and smoothness, forward and backward: "
+                f"{normals_ms(v.detach(), model.faces, ordered=True):.3f} "
+                f"ms in a fixed order, "
+                f"{normals_ms(v.detach(), model.faces, ordered=False):.3f} "
+                f"ms through index_add (atomics; host clock, 20 calls)")
         mm = {}
         for what, v in (("body", pa["vertices"]), ("SMPL+D", smpld)):
             vt = torch.as_tensor(v, device=dev)
@@ -3688,41 +3909,8 @@ def phase_validate(device="cuda", size=PHASE12):
             f"[{lbs[0][2] if lbs else ''}]")
         assert rc_b == 1 and lbs and lbs[0][0] is False, rows_b
         # the kernel at the SMPL-X forward's arguments
-        W, A, vp = rec.fwd[10475]
-        out = K.skin_forward(W, A, vp)
-        ref = K.skin_forward_plain(W, A, vp)
-        sync(device)
-        same = torch.equal(out, ref)
-        err = float((out - ref).abs().max())
-        B, V, J = vp.shape[0], vp.shape[1], W.shape[1]
-        log(f"skin_forward at validate's SMPL-X forward (B {B}, V {V}, J "
-            f"{J}): bitwise equal to the plain version: {same} (tol: exact); "
-            f"max abs err {err:.3e}")
-        assert same, "skin_forward differs from its plain version (12a)"
-        row = dict(name="skin_forward", route="cuda",
-                   source=SOURCES["skin_forward"],
-                   replaces=TPU_KERNELS["skin_forward"],
-                   launches=counts["skin_forward"], max_abs_err=err,
-                   ms=None, plain_ms=None, bound_ms=None, bound_by=None,
-                   library_ms=None, phase="12a validate_assets",
-                   shape=f"B {B} V {V}")
-        if on_card:
-            ms = cuda_ms(lambda: K.skin_forward(W, A, vp), reps=20)
-            plain = cuda_ms(lambda: K.skin_forward_plain(W, A, vp), reps=2,
-                            warmup=1)
-
-            def auto():
-                T = torch.matmul(W, A).reshape(B, V, 3, 4)
-                return torch.einsum("bvij,bvj->bvi", T[..., :3],
-                                    vp) + T[..., 3]
-
-            lib = cuda_ms(auto, reps=20)
-            b, by = skin_bound(B, V, J, False)
-            log(f"skin_forward (12a) B {B} V {V}: {ms:.4f} ms, plain "
-                f"{plain:.3f} ms, \"auto\" (matmul + einsum) {lib:.4f} ms, "
-                f"bound {b:.5f} ms ({by})")
-            row.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                       library_ms=lib)
+        row = skin_forward_row(*rec.fwd[10475], counts["skin_forward"],
+                               "12a validate_assets", on_card)
         return dict(row=row, secs=secs, wall=wall)
     finally:
         bm.FUSED_SKINNING = "auto"
@@ -3749,6 +3937,57 @@ def turned_scan(c2ws, sv):
     T[:3, 3] = [0.1, 0.0, 0.0]
     sv1 = (sv.astype(np.float64) @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
     return [(T @ c).astype(np.float32) for c in c2ws], sv1
+
+
+def batch_rounding(model, config, obs, inits, prior):
+    """Where frame 0 of a batch of two first rounds otherwise than frame 0
+    alone: the forward's vertices and joints, each loss term at the first
+    step and the first post-gate step, and the gradient, each compared
+    bitwise (max abs difference beside it).  Logs the comparisons and
+    returns the names of those that differ."""
+    import torch
+
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.models import body_model as bm
+
+    lm, jm, rows = smplify.loss_models(model, config)
+    one, two = obs[0], smplify.concat_frames(obs)
+    p1, p2 = inits[0], smplify.concat_frames(inits)
+    pairs = {}
+    with torch.no_grad():
+        for what, m in (("joints model", jm), ("full model", model)):
+            if m is None:
+                continue
+            o1, o2 = bm.forward(m, p1.body), bm.forward(m, p2.body)
+            pairs[f"{what} vertices"] = (o1.vertices[0], o2.vertices[0])
+            pairs[f"{what} joints"] = (o1.joints[0], o2.joints[0])
+    gate = config.num_iters // config.stage_gate_den
+    for step in (0, gate + 1):
+        res = []
+        for o, p in ((one, p1), (two, p2)):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in p.tensors()]
+            loss, terms = smplify.fit_loss(
+                lm, config, smplify.FitParams.from_tensors(leaves), o, step,
+                prior, joints_model=jm, mask_vertex_rows=rows)
+            g = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+            res.append((terms, g))
+        for k in res[0][0]:
+            pairs[f"step {step} {k}"] = (res[0][0][k][0].detach(),
+                                         res[1][0][k][0].detach())
+        names = bm.BODY_PARAM_FIELDS + ("global_transl", "body_scale")
+        for name, a, b in zip(names, res[0][1], res[1][1]):
+            if a is not None:
+                pairs[f"step {step} gradient of {name}"] = (a[0], b[0])
+    differ = []
+    for k, (a, b) in pairs.items():
+        same = torch.equal(a, b)
+        if not same:
+            differ.append(k)
+        log(f"scan batch (b) rounding, frame 0 alone vs in a batch of 2: "
+            f"{k}: bitwise equal {same}, max abs diff "
+            f"{float((a - b).abs().max()):.3e}")
+    return differ
 
 
 def phase_scan_batch(inp, device="cuda", size=PHASE12):
@@ -3806,6 +4045,10 @@ def phase_scan_batch(inp, device="cuda", size=PHASE12):
           residual_mm(result["vertices"][1] + result["displacement"][1],
                       obs[1]))
     r6 = inp["residual_mm"]
+    batch_rounding(model, config, obs, inits, prior)
+    log(f"scan batch (b): scan 0's body vertices sha1 "
+        f"{tensor_sha1(result['vertices'][0])}, displacements sha1 "
+        f"{tensor_sha1(result['displacement'][0])}")
     log(f"scan batch (b): scan 0 against phase 6's one-scan fit: vertices "
         f"max |diff| {d0:.4f} mm (tol {size['max_scan0_mm']} mm), "
         f"displacements {dd:.4f} mm (not held: nothing holds a vertex in "
@@ -4124,6 +4367,418 @@ def phase_rest(state, scan, app, device="cuda", size=PHASE12):
                 overlay=c, soft=d, queries=e)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device fits over torch.distributed
+# ---------------------------------------------------------------------------
+
+# The production-shape sharded problem (parallel/checks.py): the SMPL-X
+# synthetic model at 10,475 vertices, 8 frames, 4 keypoint views, 2 masks
+# of 128^2 with 256 contour points, the 24^3 volume of a 2,048-vertex
+# sphere scan, 60 iterations across the gate; 3 frames of it for the
+# temporal fit; the vertex-sharded SMPL-X over 2 ranks.
+PHASE13 = dict(n_frames=8, num_iters=60, temporal_frames=3, ranks=2,
+               tp_verts=10475, reps=20,
+               # the sharded fits against the single-device fit, as the
+               # JAX package's hardware check (__graft_entry__.py:264-275)
+               pre_gate_rtol=1e-3, last_rtol=0.2, tp_atol=2e-5,
+               # the temporal fit over 2x1 against the unsharded one: the
+               # same objective, so only rounding (1.2e-7 measured)
+               temporal_rtol=1e-4)
+PHASE13_KERNELS = KERNEL_NAMES + ("nearest_d2_idx",)
+
+
+def _frames_of(item, lo, hi):
+    """Frames ``lo:hi`` of a dataclass of ``[B, ...]`` tensors."""
+    return type(item)(**{
+        f.name: (_frames_of(v, lo, hi) if dataclasses.is_dataclass(v)
+                 else None if v is None else v[lo:hi])
+        for f in dataclasses.fields(item)
+        for v in (getattr(item, f.name),)})
+
+
+def _same_fit(a, b):
+    """Two ``(params, result, losses)`` bitwise equal."""
+    import torch
+
+    pa, ra, la = a
+    pb, rb, lb = b
+    return (all(torch.equal(x, y) for x, y in zip(pa.tensors(),
+                                                   pb.tensors()))
+            and set(ra) == set(rb)
+            and all(torch.equal(ra[k], rb[k]) for k in ra)
+            and torch.equal(la, lb))
+
+
+def replay_ms(entries, reps, device):
+    """Device ms of one round of the logged collectives ``entries``
+    (``comm.LOG``'s), replayed ``reps`` times on fresh tensors, and the
+    bytes one round sends from this rank."""
+    import torch
+    import torch.distributed as dist
+
+    bufs = [(k, torch.ones(shape, dtype=dt, device=device), g)
+            for k, shape, dt, g, _ in entries]
+
+    def once():
+        for kind, t, g in bufs:
+            if kind == "all_reduce":
+                dist.all_reduce(t, group=g)
+            else:
+                parts = [torch.empty_like(t)
+                         for _ in range(dist.get_world_size(g))]
+                dist.all_gather(parts, t, group=g)
+
+    once()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    sync(device)
+    return ((time.perf_counter() - t0) / reps * 1e3,
+            sum(t.numel() * t.element_size() for _, t, _ in bufs))
+
+
+def sharded_fit(model, config, obs, init, prior, mesh, device, reps):
+    """``fit_sequence_sharded`` on ``mesh``, timed on the host clock, its
+    collectives logged; a step's collectives and the end gathers are
+    replayed ``reps`` times.  Returns ``(fit, record)``."""
+    from bodyfitting_torch.ops import comm
+    from bodyfitting_torch.parallel import sharding as sh
+
+    comm.LOG = []
+    sync(device)
+    t0 = time.perf_counter()
+    fit = sh.fit_sequence_sharded(model, config, obs, init, prior, mesh=mesh)
+    sync(device)
+    wall = time.perf_counter() - t0
+    entries, comm.LOG = comm.LOG, None
+    steps = [e for e in entries if e[0] == "all_reduce"]
+    gathers = [e for e in entries if e[0] == "all_gather"]
+    per_step = len(steps) // config.num_iters
+    assert len(steps) == per_step * config.num_iters, len(steps)
+    r = dict(wall=wall, losses=fit[2].cpu(),
+             vertices=fit[1]["vertices"].cpu(), calls=len(entries),
+             bytes=sum(e[4] for e in entries), step_collectives=per_step,
+             step_ms=0.0, step_bytes=0)
+    if steps:
+        r["step_ms"], r["step_bytes"] = replay_ms(steps[:per_step], reps,
+                                                  device)
+    r["gather_ms"], r["gather_bytes"] = replay_ms(gathers, reps, device)
+    return fit, r
+
+
+def loss_errors(got, ref, gate):
+    """Max relative errors of loss curves ``[B, T]`` (numpy) against the
+    single-device fit's: before the stage gate, and at the last step."""
+    pre = slice(0, gate + 1)
+    return (float(np.max(np.abs(got[:, pre] - ref[:, pre])
+                         / np.abs(ref[:, pre]))),
+            float(np.max(np.abs(got[:, -1] - ref[:, -1])
+                         / np.abs(ref[:, -1]))))
+
+
+def tp_forward(num_verts, device, time_kernel):
+    """The SMPL-X forward vertex-sharded over the world's ranks
+    (``tp`` mesh, auto-padded) under ``FUSED_SKINNING = "on"``, against
+    the whole model's plain forward (``"auto"``: ``matmul`` + apply) on
+    the same parameters; this rank's ``skin_forward`` call is held
+    bitwise against its plain version on its inputs, and timed on rank 0
+    with ``time_kernel`` (after the other ranks' checks)."""
+    import torch
+    import torch.distributed as dist
+
+    from bodyfitting_torch.models import body_model as bm
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.parallel import tensor as tp
+
+    on_card = torch.device(device).type == "cuda"
+    full = bm.synthetic_model("smplx", num_verts=num_verts, seed=0,
+                              device=device)
+    rng = np.random.default_rng(4)
+    params = dataclasses.replace(
+        bm.BodyParams.zeros(full),
+        body_pose=torch.as_tensor(rng.normal(size=(1, 63)) * 0.2,
+                                  dtype=torch.float32, device=device),
+        betas=torch.as_tensor(rng.normal(size=(1, 10)), dtype=torch.float32,
+                              device=device))
+    mesh = tp.make_tp_mesh()
+    sharded = tp.shard_model_vertices(full, mesh)
+    params = tp.replicate_params(params, mesh)
+    rec = SkinRecorder()
+    bm.FUSED_SKINNING = "on"
+    try:
+        sync(device)
+        K.reset_launch_counts()
+        with torch.no_grad(), rec.active():
+            got = bm.forward(sharded, params)
+        sync(device)
+        launches = K.launch_counts()["skin_forward"]
+    finally:
+        bm.FUSED_SKINNING = "auto"
+    with torch.no_grad():
+        want = bm.forward(full, params)
+    rows = sharded.v_template.shape[0]
+    (W, A, vp), = rec.fwd.values()
+    rank = dist.get_rank()
+    timed = time_kernel and rank == 0
+    phase = f"13d rank {rank}: {rows} rows of V {num_verts}"
+    if not timed:
+        row = skin_forward_row(W, A, vp, launches, phase, on_card, False)
+    dist.barrier()
+    if timed:
+        row = skin_forward_row(W, A, vp, launches, phase, on_card)
+    return dict(rows=rows, v_pad=got.vertices.shape[1],
+                pad_zero=bool((got.vertices[:, num_verts:] == 0).all()),
+                vert_err=float((got.vertices[:, :num_verts]
+                                - want.vertices).abs().max()),
+                joint_err=float((got.joints - want.joints).abs().max()),
+                skin_forward=launches, row=row)
+
+
+def _rank13(rank, world, store_path, out_dir, size, device):
+    """One rank of phase 13 (b)-(d): a gloo world of ``world`` processes
+    on card 0 (NCCL refuses two ranks on one card), or on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        from bodyfitting_torch.fitting import body_fitting as bf
+        from bodyfitting_torch.fitting import smplify
+        from bodyfitting_torch.parallel import checks
+        from bodyfitting_torch.parallel import sharding as sh
+
+        model, config, obs, init, prior = checks.make_production_fit_problem(
+            n_frames=size["n_frames"], num_iters=size["num_iters"],
+            device=device)
+        out = {}
+        # (b) the 2x1 and 1x2 meshes
+        for name, shape in (("2x1", (world, 1)), ("1x2", (1, world))):
+            fit, r = sharded_fit(model, config, obs, init, prior,
+                                 sh.make_mesh(*shape), device, size["reps"])
+            if name == "2x1":
+                assert r["step_collectives"] == 0, r
+                n = size["n_frames"] // world
+                lo = rank * n
+                alone = smplify.fit(model, config,
+                                    _frames_of(obs, lo, lo + n),
+                                    _frames_of(init, lo, lo + n), prior)
+                mine = (smplify.FitParams.from_tensors(
+                    [t[lo:lo + n] for t in fit[0].tensors()]),
+                    {k: v[lo:lo + n] for k, v in fit[1].items()},
+                    fit[2][lo:lo + n])
+                r["block_bitwise"] = _same_fit(mine, alone)
+            else:
+                assert r["step_collectives"] == 2, r
+            out[name] = r
+        # (c) the temporal fit of 3 frames over 2x1, one padding frame
+        T = size["temporal_frames"]
+        results, losses = bf.fit_sequence_batched(
+            model, config, [_frames_of(obs, i, i + 1) for i in range(T)],
+            [_frames_of(init, i, i + 1) for i in range(T)], prior,
+            mesh=sh.make_mesh(world, 1))
+        out["temporal"] = dict(losses=losses.cpu(),
+                               vertices=results["vertices"].cpu())
+        # (d) the vertex-sharded SMPL-X under the fused skinning
+        out["tp"] = tp_forward(size["tp_verts"], device, time_kernel=True)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(app=None, size=PHASE13, device="cuda"):
+    """Phase 13: (a) a world of one on NCCL, the sharded production fit
+    against ``fit_frames_batched``; (b)-(d) a gloo world of two ranks on
+    card 0: the 2x1 and 1x2 meshes, the temporal fit, the vertex-sharded
+    SMPL-X; (e) phase 9's ``--data_parallel`` runs; (f) the kernels at
+    (a)'s last step and the 24^3 volume build.  Returns the kernel rows."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from bodyfitting_torch.fitting import body_fitting as bf
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.parallel import checks
+    from bodyfitting_torch.parallel import sharding as sh
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    # (a) a world of one: the same computation as the single-device fit
+    sh.init_world(device)
+    assert dist.get_world_size() == 1
+    assert dist.get_backend() == ("nccl" if on_card else "gloo")
+    builds = []
+    sync(device)
+    K.reset_launch_counts()
+    with nearest_ops(recorder(builds)):
+        model, config, obs, init, prior = checks.make_production_fit_problem(
+            n_frames=size["n_frames"], num_iters=size["num_iters"],
+            device=device)
+    t0 = time.perf_counter()
+    sharded = sh.fit_sequence_sharded(model, config, obs, init, prior,
+                                      mesh=sh.make_mesh())
+    sync(device)
+    wall_sharded = time.perf_counter() - t0
+    launches = K.launch_counts()
+    B = size["n_frames"]
+    t0 = time.perf_counter()
+    single = bf.fit_frames_batched(
+        model, config, [_frames_of(obs, i, i + 1) for i in range(B)],
+        [_frames_of(init, i, i + 1) for i in range(B)], prior)
+    sync(device)
+    wall_single = time.perf_counter() - t0
+    same = _same_fit(sharded, single)
+    losses = single[2].cpu().numpy()
+    gate = config.num_iters // config.stage_gate_den
+    jump = losses[:, gate + 1] / losses[:, gate]
+    log(f"parallel (a): world of one on {dist.get_backend()}: "
+        f"fit_sequence_sharded {wall_sharded:.3f} s, fit_frames_batched "
+        f"{wall_single:.3f} s wall ({B} frames, {config.num_iters} "
+        f"iterations, V {model.num_verts}); bitwise equal: {same}; loss "
+        f"jump at the gate x{jump.min():.2f}-x{jump.max():.2f} (bound "
+        f"> x1.5); launches {launches}")
+    assert same, "the sharded fit in a world of one is not the single fit"
+    assert (jump > 1.5).all(), "the stage gate did not fire"
+    for name in PHASE13_KERNELS if on_card else ():
+        assert launches[name] > 0, f"{name} never launched in phase 13 (a)"
+
+    # (b)-(d) two ranks on card 0 over gloo
+    tmp = tempfile.TemporaryDirectory(prefix="bodyfit_ranks_")
+    try:
+        W = size["ranks"]
+        t0 = time.perf_counter()
+        mp.spawn(_rank13, args=(W, os.path.join(tmp.name, "store"),
+                                tmp.name, size, device), nprocs=W,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"),
+                            weights_only=False) for r in range(W)]
+    finally:
+        tmp.cleanup()
+    for name in ("2x1", "1x2"):
+        r = ranks[0][name]
+        pre_err, last_err = loss_errors(r["losses"].numpy(), losses, gate)
+        vdiff = float((r["vertices"] - single[1]["vertices"].cpu())
+                      .abs().max())
+        extra = ""
+        if name == "2x1":
+            extra = (f"; each rank's block bitwise its block fitted alone: "
+                     f"{[x[name]['block_bitwise'] for x in ranks]}")
+        log(f"parallel (b) {name}: {r['wall']:.3f} s wall (rank 0); vs the "
+            f"single-device fit: pre-gate loss max rel err {pre_err:.3e} "
+            f"(tol {size['pre_gate_rtol']}), last loss {last_err:.3e} (tol "
+            f"{size['last_rtol']}), vertices max abs diff {vdiff:.3e} m; "
+            f"{r['calls']} collectives, {r['bytes']} B sent by rank 0; "
+            f"collectives a step: {r['step_collectives']} "
+            f"({r['step_bytes']} B a rank), {r['step_ms']:.4f} ms replayed; "
+            f"the end gathers {r['gather_ms']:.3f} ms, {r['gather_bytes']} B "
+            f"a rank{extra}")
+        assert pre_err <= size["pre_gate_rtol"], (name, pre_err)
+        assert last_err <= size["last_rtol"], (name, last_err)
+        if name == "2x1":
+            assert all(x[name]["block_bitwise"] for x in ranks)
+    T = size["temporal_frames"]
+    t_res, t_losses = bf.fit_sequence_batched(
+        model, config, [_frames_of(obs, i, i + 1) for i in range(T)],
+        [_frames_of(init, i, i + 1) for i in range(T)], prior)
+    tr = ranks[0]["temporal"]
+    want, want_v = t_losses.cpu().numpy(), t_res["vertices"].cpu()
+    loss_err = float(np.max(np.abs(tr["losses"].numpy() - want)
+                            / np.abs(want)))
+    vert_err = float((tr["vertices"] - want_v).abs().max()
+                     / want_v.abs().max())
+    log(f"parallel (c): temporal fit of {T} frames over 2x1 (one padding "
+        f"frame) vs unsharded: every step's loss max rel err "
+        f"{loss_err:.3e}, vertices max abs diff / max |vertex| "
+        f"{vert_err:.3e} (tol {size['temporal_rtol']} each); vertices "
+        f"{tuple(tr['vertices'].shape)}")
+    assert tr["vertices"].shape == want_v.shape
+    assert max(loss_err, vert_err) <= size["temporal_rtol"], (loss_err,
+                                                               vert_err)
+    tpr = ranks[0]["tp"]
+    log(f"parallel (d): SMPL-X V {size['tp_verts']} over {W} ranks, "
+        f"{tpr['rows']} rows a rank, V_pad {tpr['v_pad']}; vs the whole "
+        f"model's plain forward: vertices max abs err "
+        f"{tpr['vert_err']:.3e}, joints {tpr['joint_err']:.3e} (tol "
+        f"{size['tp_atol']}); pad rows exactly 0: {tpr['pad_zero']}; "
+        f"skin_forward launches a rank {[x['tp']['skin_forward'] for x in ranks]}"
+        f"; {W} ranks spawned and run in {spawn_s:.1f} s")
+    assert tpr["pad_zero"] and max(tpr["vert_err"], tpr["joint_err"]) <= \
+        size["tp_atol"]
+    assert all(x["tp"]["skin_forward"] == int(on_card) for x in ranks)
+
+    # (e) phase 9's app with --data_parallel
+    if app is not None:
+        dp = app["data_parallel"]
+        log(f"parallel (e): app on {dp['frames']} frames, parameters sha1 "
+            f"{dp['single']} single, {dp['dp']} --data_parallel; "
+            f"{dp['single_s']:.3f} / {dp['dp_s']:.3f} s wall")
+        assert dp["single"] == dp["dp"], dp
+
+    if not on_card:
+        dist.destroy_process_group()
+        return dict(rows=[], ranks=ranks)
+    # (f) the kernels at (a)'s last step and at the volume build
+    captured = {}
+
+    def keep_last(kernel, fn):
+        def wrapped(*a, **kw):
+            key = kernel
+            if kernel == "bilinear_cov_grads":
+                key = "stay-inside" if kw["with_grads"] else "lookup"
+            captured[key] = (tuple(x.detach() if torch.is_tensor(x) else x
+                                   for x in a), kw)
+            return fn(*a, **kw)
+        return wrapped
+
+    with silhouette_ops(keep_last):
+        loss_and_grads(smplify.loss_models(model, config), config,
+                       sharded[0], obs, prior, config.num_iters - 1)
+    rows = [check_bilinear_full(captured, "phase 13"),
+            check_contour(captured["contour_match_full"][0],
+                          edge_cases=False),
+            check_scatter(captured["rows_scatter_add"][0], edge_cases=False)]
+    args, kw = builds[0]
+    err = check_nearest(args, kw, "phase 13 24^3 volume build")
+    pts, tri = args[0], args[1]
+    ms = cuda_ms(lambda: K.nearest_d2_idx(*args, **kw), reps=10, warmup=1)
+    plain = cuda_ms(lambda: K.nearest_d2_idx_plain(*args, **kw), reps=1,
+                    warmup=0)
+    d2, _ = K.nearest_d2_idx(*args, **kw)
+    pairs = box_survivors(pts, tri, d2, kw["tie_verts"])
+    b, by = bound_ms(nbytes(*args, *kw.values()) + pts.shape[0] * 8,
+                     NEAREST_OPS_PER_PAIR * pairs)
+    log(f"nearest_d2_idx phase 13 build Q {pts.shape[0]} F {tri.shape[0]}: "
+        f"{ms:.4f} ms, plain {plain:.3f} ms, bound {b:.5f} ms ({by})")
+    rows.append(dict(name="nearest_d2_idx", max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=b, bound_by=by,
+                     library_ms=None,
+                     shape=f"24^3 build Q {pts.shape[0]} F {tri.shape[0]}"))
+    table = [dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
+                  replaces=TPU_KERNELS[r["name"]],
+                  launches=launches[r["name"]],
+                  **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "shape")}, phase=13)
+             for r in rows]
+    table.append(dict(tpr["row"], phase=13))
+    dist.destroy_process_group()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return dict(rows=table, wall_sharded=wall_sharded,
+                wall_single=wall_single, ranks=ranks)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4133,6 +4788,9 @@ def main():
     ap.add_argument("--save-volume", metavar="NPZ",
                     help="write the scan problem, its 96^3 volume and the "
                     "SDF fit's result here (for tests/scan_fit_vs_jax.py)")
+    ap.add_argument("--save-rp", metavar="NPZ",
+                    help="write phase 10's scan and ground-truth joints here "
+                    "(for tests/rp_mask_fit_vs_jax.py)")
     cli = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -4151,7 +4809,7 @@ def main():
     table.extend(texture["table"])
     app = phase_app(smi=smi)
     table.extend(skin_rows(app))
-    rp = phase_rp_app(smi=smi)
+    rp = phase_rp_app(smi=smi, save_rp=cli.save_rp)
     phase_openpose(state, smi=smi)
     rest = phase_rest(state, scan, app)
     table.extend(rest["rows"])
@@ -4161,6 +4819,7 @@ def main():
         if row["name"] in rp["silhouette"]:
             row["rp_app_c"] = {k: v for k, v in rp["silhouette"][
                 row["name"]].items() if k != "name"}
+    table.extend(phase_parallel(app)["rows"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -261,15 +261,51 @@ def test_app_runs_hmr_on_the_keyframe(dataset, tmp_path):
 
 
 def test_unported_options_raise(dataset, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        papp.main(_argv(dataset, tmp_path, ["--data_parallel"]), device="cpu")
+    """Every option is ported: what still raises is a sharded fit with no
+    process group, and a run without a card that did not ask for the
+    CPU."""
+    import torch.distributed as dist
+
+    from bodyfitting_torch.fitting import body_fitting as bf
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_world"):
+        bf.fit_frames_batched_sharded(None, None, [None], [None], None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         papp.main(_argv(dataset, tmp_path, []))
-    from bodyfitting_torch.fitting import body_fitting as bf
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        papp.main(_argv(dataset, tmp_path, ["--data_parallel"]))
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bf.fit_frames_batched_sharded()
+
+@pytest.mark.parametrize("extra", [[], ["--use_mask", "--temporal"]],
+                         ids=["keypoints", "use_mask_temporal"])
+def test_data_parallel_matches_single_device(dataset, tmp_path, extra):
+    """``--data_parallel`` in a world of one (made in this process) fits
+    each batch through ``fit_frames_batched_sharded`` (or the meshed
+    temporal fit) and writes what the single-device run writes, to the
+    JAX app's ``test_apps.py`` tolerance (rtol 2e-5, atol 1e-5)."""
+    import torch.distributed as dist
+
+    outs = {}
+    try:
+        for name, more in (("single", []), ("dp", ["--data_parallel"])):
+            out = tmp_path / name
+            _run_port(dataset, out, extra + more, iters=6)
+            outs[name] = _outputs(out)
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (sp, so, st), (dp, do, dt) = outs["single"], outs["dp"]
+    assert [r["frame"] for r in st] == [r["frame"] for r in dt]
+    for a, b in zip(sp, dp):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=2e-5, atol=1e-5,
+                                       err_msg=k)
+    for a, b in zip(st, dt):
+        np.testing.assert_allclose(b["losses"], a["losses"], rtol=2e-5)
 
 
 def _seeded_flax_variables(model, rng, *args):

@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "bodyfitting_tpu")
 def _port_sources():
     files = [os.path.join(REPO, n)
              for n in ("chip_smoke.py", "bench_icp_kernels.py",
-                       "bench_bilinear_kernel.py", "bench_skin_kernels.py")]
+                       "bench_bilinear_kernel.py", "bench_skin_kernels.py",
+                       "bench_parallel_fit.py")]
     for root, _, names in os.walk(os.path.join(REPO, "bodyfitting_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -70,6 +71,10 @@ def test_importing_the_port_loads_no_jax():
         "from bodyfitting_torch.tools import manifests, validate_assets\n"
         "from bodyfitting_torch.utils import cam_pose_vis, camera_rig, "
         "correspondence, imutils, overlay, reconstruction\n"
+        "from bodyfitting_torch.ops import comm, gather\n"
+        "from bodyfitting_torch.parallel import checks, sharding, tensor\n"
+        "import bodyfitting_torch.parallel as par\n"
+        "assert par.make_mesh is sharding.make_mesh\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',\n"
         "                               'bodyfitting_tpu')]\n"
@@ -249,3 +254,47 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_last_public_names_match_the_jax_package():
+    """The parallel exports, every constant (equal values) and
+    ``make_hmr_vec`` (equal arrays) have their counterparts."""
+    import bodyfitting_tpu.constants as jc
+    import bodyfitting_tpu.parallel as jpar
+    from bodyfitting_tpu.io.params import make_hmr_vec as j_hmr_vec
+
+    import bodyfitting_torch.constants as tc
+    import bodyfitting_torch.parallel as tpar
+    from bodyfitting_torch.io.params import make_hmr_vec
+
+    for n in (n for n in vars(jpar) if not n.startswith("_")
+              and callable(getattr(jpar, n))):
+        assert callable(getattr(tpar, n)), n
+    names = [n for n in vars(jc) if n.isupper()]
+    assert {"JOINT_NAMES", "JOINT_MAP", "JOINT_IDS", "NUM_TOTAL_KP",
+            "SMPLX_NUM_FACES", "NUM_CONTOUR_LMKS"} <= set(names)
+    for n in names:
+        a, b = getattr(jc, n), getattr(tc, n)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), n
+        else:
+            assert a == b, n
+    rng = np.random.default_rng(0)
+    for kind, n in (("smplx", 66), ("smpl", 72)):
+        pose, betas, cam = (rng.normal(size=s) for s in (n, 10, 3))
+        want = j_hmr_vec(pose, betas, cam, kind)
+        got = make_hmr_vec(torch.as_tensor(pose), betas, cam, kind)
+        assert got.dtype == want.dtype and got.shape == (1, n + 13)
+        assert np.array_equal(got, want)
+
+
+def test_profiler_trace_writes_a_chrome_trace(tmp_path):
+    import json
+
+    from bodyfitting_torch.utils.observability import profiler_trace
+
+    with profiler_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64).cumsum(0).sum()
+    assert prof is not None
+    trace = json.load(open(tmp_path / "trace" / "trace.json"))
+    assert any("cumsum" in e.get("name", "") for e in trace["traceEvents"])

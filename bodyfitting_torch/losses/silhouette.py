@@ -1,7 +1,8 @@
 """Silhouette (mask) fitting loss, batched over frames and views.
 
-Counterpart of ``bodyfitting_tpu/losses/silhouette.py`` (its separate-op
-form; the fused per-view op is not ported).  Two terms per mask view:
+Counterpart of ``bodyfitting_tpu/losses/silhouette.py``, both its
+separate-op route and its fused per-view op (``FUSED_MASK_TERM``).  Two
+terms per mask view:
 
   * contour -> model 2D ICP: each contour pixel's distance to the nearest
     projected vertex that lands inside the image, weighted ``epsilon`` x
@@ -12,6 +13,11 @@ form; the fused per-view op is not ported).  Two terms per mask view:
     ``grid_sample`` taps, align_corners=True, zero padding) at every
     projected vertex, computed as ``coverage - sample`` through
     :func:`~bodyfitting_torch.ops.kernels.bilinear_cov_grads`.
+
+In crop mode with both terms, ``FUSED_MASK_TERM = "fused"`` computes the
+two terms of every view in one autograd function, :class:`MaskViewTerms`
+(:func:`~bodyfitting_torch.ops.kernels.mask_terms_forward`, two launches,
+and :func:`~bodyfitting_torch.ops.kernels.mask_terms_backward`, one).
 
 Frames ``B`` and mask views ``Vm`` are flattened into one kernel batch
 axis ``BV = B * Vm``.  Host-side preparation (binarising, contour
@@ -29,9 +35,22 @@ from bodyfitting_torch.ops.camera import perspective_projection
 from bodyfitting_torch.ops.kernels import (
     bilinear_cov_grads,
     contour_match_full,
+    mask_terms_backward,
+    mask_terms_forward,
     pack_bits,
     rows_scatter_add,
 )
+from bodyfitting_torch.ops.kernels.mask_terms import (
+    coverage_and_grads,
+    pixel_scale,
+)
+
+# The mask term's route in crop mode with both terms, as the JAX
+# package's switch of the same name: "auto" and "separate" run the
+# separate ops (ContourMatched, StayInsideSampleCrop and the PyTorch ops
+# around them), "fused" runs MaskViewTerms.  The JAX package measured the
+# fused op neutral on the TPU and keeps "auto" separate; so does the port.
+FUSED_MASK_TERM = "auto"
 
 # ---------------------------------------------------------------------------
 # Host-side preparation
@@ -252,28 +271,8 @@ def coverage_closed_form(xyhat: torch.Tensor, full_hw: tuple) -> torch.Tensor:
     """Per-point in-image coverage: the zero-padded bilinear sample of a
     constant-1 ``[H, W]`` image at pixel-grid position ``xyhat [..., 2]``,
     ``clip(min(y + 1, H - y), 0, 1) * clip(min(x + 1, W - x), 0, 1)``."""
-    cov, _, _ = _coverage_and_grads(xyhat, full_hw)
+    cov, _, _ = coverage_and_grads(xyhat, full_hw)
     return cov
-
-
-def _coverage_and_grads(xyhat: torch.Tensor, full_hw: tuple):
-    """Closed-form coverage and its analytic x/y derivatives (+-1 on the
-    open one-pixel border ramps, 0 elsewhere).  Returns
-    ``(cov, dcov_dx, dcov_dy)``."""
-    H, W = full_hw
-    x, y = xyhat[..., 0], xyhat[..., 1]
-
-    def axis_cov(v, n):
-        lo = v + 1.0
-        hi = float(n) - v
-        c = torch.clamp(torch.minimum(lo, hi), 0.0, 1.0)
-        on_ramp = (c > 0.0) & (c < 1.0)
-        slope = torch.where(lo < hi, 1.0, -1.0).to(v.dtype)
-        return c, torch.where(on_ramp, slope, 0.0)
-
-    rs, drs = axis_cov(y, H)
-    cs, dcs = axis_cov(x, W)
-    return rs * cs, dcs * rs, drs * cs
 
 
 class StayInsideSampleCrop(torch.autograd.Function):
@@ -292,7 +291,7 @@ class StayInsideSampleCrop(torch.autograd.Function):
     def forward(ctx, crop, xyhat, origin, full_hw):
         xyc = (xyhat - origin[:, None, :]).contiguous()
         out = bilinear_cov_grads(crop, xyc, with_grads=True, with_cov=False)
-        cov, dc_dx, dc_dy = _coverage_and_grads(xyhat, full_hw)
+        cov, dc_dx, dc_dy = coverage_and_grads(xyhat, full_hw)
         ctx.save_for_backward(out[:, 2], out[:, 3], dc_dx, dc_dy)
         return out[:, 0], cov
 
@@ -349,63 +348,72 @@ class ContourMatched(torch.autograd.Function):
         return None, dproj.transpose(1, 2), None
 
 
+class MaskViewTerms(torch.autograd.Function):
+    """``(icp [BV], binary [BV])``: both mask terms of every view in crop
+    mode, the JAX package's fused per-view op (``_mask_view_terms_fused``).
+
+    Inputs ``proj [BV, M, 2]`` (the only differentiable one), ``contour
+    [BV, P, 2]``, ``cvalid [BV, P]``, the crops ``[BV, Hc, Wc]`` (f32 or
+    the bit mask of :func:`mask_crops_bits`), ``origin [BV, 2]``,
+    ``vvalid [BV]``, and the static ``imsize``, ``epsilon``, ``full_hw``.
+    The values are the separate route's (``silhouette_loss`` with
+    ``FUSED_MASK_TERM = "auto"``) up to the order of the per-view sums;
+    the backward assembles the projection's cotangent once: the ICP rows
+    summed onto their matched vertices, then the stay-inside term.
+    """
+
+    @staticmethod
+    def forward(ctx, proj, contour, cvalid, crop, origin, vvalid, imsize,
+                epsilon, full_hw):
+        sums, idx, pix, vert = mask_terms_forward(
+            proj.contiguous(), contour.contiguous(), cvalid.contiguous(),
+            crop.contiguous(), origin.contiguous(), vvalid.contiguous(),
+            imsize, epsilon, full_hw)
+        ctx.save_for_backward(idx, pix, vert, vvalid)
+        H, W = full_hw
+        ctx.scale = ((W - 1) / imsize, (H - 1) / imsize)
+        return sums[0], sums[1]
+
+    @staticmethod
+    def backward(ctx, g_icp, g_binary):
+        idx, pix, vert, vvalid = ctx.saved_tensors
+        dproj = mask_terms_backward(idx, pix, vert, g_icp.contiguous(),
+                                    g_binary.contiguous(),
+                                    vvalid.contiguous(), ctx.scale)
+        return dproj, None, None, None, None, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # The loss
 # ---------------------------------------------------------------------------
 
 
-def silhouette_loss(
-    contours: torch.Tensor,
-    contour_valid: torch.Tensor,
-    masks: torch.Tensor | None,
-    w2cs: torch.Tensor,
-    Ks: torch.Tensor,
-    verts: torch.Tensor,
-    *,
-    vertex_stride: int = 4,
-    epsilon: float = 10.0,
-    imsize: float = 512.0,
-    mask_crops: torch.Tensor | None = None,
-    mask_crop_origins: torch.Tensor | None = None,
-    mask_view_valid: torch.Tensor | None = None,
-    full_hw: tuple | None = None,
-) -> torch.Tensor:
-    """Multi-view mask loss per frame, ``[B]``.
+def separate_view_terms(proj, contour, cvalid, look_img, origin, vvalid,
+                        *, imsize: float, epsilon: float, full_hw: tuple,
+                        terms=("icp", "binary")):
+    """``(icp [BV], binary [BV])`` through the separate ops, the JAX
+    package's ``per_view`` without the fused op: ``look_img [BV, Hc, Wc]``
+    crops at ``origin [BV, 2]`` with ``vvalid [BV]`` (crop mode), or, with
+    ``origin`` None, full masks ``[BV, H, W]`` (``full_hw`` their shape).
+    ``terms`` as :func:`silhouette_loss` takes it."""
+    use_crops = origin is not None
+    H, W = full_hw
+    scale = pixel_scale(tuple(full_hw), float(imsize), proj.dtype,
+                        proj.device)
+    xyhat = proj * scale
 
-    Args:
-      contours ``[B, Vm, P, 2]`` padded contour pixels (x, y);
-      contour_valid ``[B, Vm, P]`` contour weights (0 = padding);
-      masks ``[B, Vm, H, W]`` 0/1 masks (full-mask mode; padded views
-        all-ones), or None in crop mode;
-      w2cs ``[B, Vm, 4, 4]``, Ks ``[B, Vm, 3, 3]``;
-      verts ``[B, V, 3]`` world vertices (already scaled).
+    def stay_inside():
+        # differentiable "stay inside": the sum of (1 - mask) at the
+        # vertices, as coverage - sample
+        if use_crops:
+            sampled, coverage = StayInsideSampleCrop.apply(
+                look_img, xyhat, origin, (H, W))
+            return vvalid * torch.sum(coverage - sampled, dim=-1)
+        sampled, coverage = StayInsideSample.apply(look_img, xyhat)
+        return torch.sum(coverage - sampled, dim=-1)
 
-    Crop mode (``mask_crops [B, Vm, Hc, Wc]`` + ``mask_crop_origins
-    [B, Vm, 2]``, from :func:`compute_mask_crops`): the mask is sampled on
-    the crops, the coverage is closed-form against ``full_hw`` (default
-    ``(imsize, imsize)``) and padded views are zeroed by
-    ``mask_view_valid [B, Vm]``.
-    """
-    use_crops = mask_crops is not None
-    B, Vm = w2cs.shape[:2]
-    BV = B * Vm
-    pts3d = verts[:, ::vertex_stride]
-    proj = perspective_projection(
-        pts3d[:, None], w2cs[..., :3, :3], w2cs[..., :3, 3], Ks
-    ).reshape(BV, -1, 2)                                      # [BV, M, 2]
-    if use_crops:
-        H, W = full_hw if full_hw is not None else (int(imsize), int(imsize))
-        look_img = mask_crops.reshape(BV, *mask_crops.shape[2:])
-        origin = mask_crop_origins.reshape(BV, 2)
-        vvalid = (
-            mask_view_valid.reshape(BV) if mask_view_valid is not None
-            else proj.new_ones(BV)
-        )
-    else:
-        H, W = masks.shape[-2:]
-        look_img = masks.reshape(BV, H, W)
-    contour = contours.reshape(BV, -1, 2)
-    cvalid = contour_valid.reshape(BV, -1)
+    if "icp" not in terms:
+        return proj.new_zeros(proj.shape[0]), stay_inside()
 
     # contour -> model ICP over the vertices that project inside the image
     px, py = proj[..., 0], proj[..., 1]
@@ -426,18 +434,80 @@ def silhouette_loss(
                                      with_grads=False, with_cov=False)[:, 0]
         coeff = torch.where(mask_at < 0.1, epsilon, 1.0).to(proj.dtype)
     icp = torch.sum(mindist * coeff * cvalid, dim=-1)         # [BV]
+    if "binary" not in terms:
+        return icp, proj.new_zeros(proj.shape[0])
+    return icp, stay_inside()
 
-    # differentiable stay-inside term: sum of (1 - mask) at the vertices
-    scale = torch.tensor([(W - 1) / imsize, (H - 1) / imsize],
-                         dtype=proj.dtype, device=proj.device)
-    xyhat = proj * scale
+
+def silhouette_loss(
+    contours: torch.Tensor,
+    contour_valid: torch.Tensor,
+    masks: torch.Tensor | None,
+    w2cs: torch.Tensor,
+    Ks: torch.Tensor,
+    verts: torch.Tensor,
+    *,
+    vertex_stride: int = 4,
+    epsilon: float = 10.0,
+    imsize: float = 512.0,
+    terms: tuple = ("icp", "binary"),
+    mask_crops: torch.Tensor | None = None,
+    mask_crop_origins: torch.Tensor | None = None,
+    mask_view_valid: torch.Tensor | None = None,
+    full_hw: tuple | None = None,
+) -> torch.Tensor:
+    """Multi-view mask loss per frame, ``[B]``.
+
+    Args:
+      contours ``[B, Vm, P, 2]`` padded contour pixels (x, y);
+      contour_valid ``[B, Vm, P]`` contour weights (0 = padding);
+      masks ``[B, Vm, H, W]`` 0/1 masks (full-mask mode; padded views
+        all-ones), or None in crop mode;
+      w2cs ``[B, Vm, 4, 4]``, Ks ``[B, Vm, 3, 3]``;
+      verts ``[B, V, 3]`` world vertices (already scaled).
+
+    ``terms`` selects the loss terms, as in the JAX package: ``("icp",
+    "binary")`` (the fits' choice), ``("icp",)`` or ``("binary",)``.
+    Without "icp" the stay-inside term is computed whatever else is named.
+
+    Crop mode (``mask_crops [B, Vm, Hc, Wc]`` + ``mask_crop_origins
+    [B, Vm, 2]``, from :func:`compute_mask_crops`): the mask is sampled on
+    the crops, the coverage is closed-form against ``full_hw`` (default
+    ``(imsize, imsize)``) and padded views are zeroed by
+    ``mask_view_valid [B, Vm]``.  With both terms and ``FUSED_MASK_TERM
+    == "fused"`` the terms come from :class:`MaskViewTerms`.
+    """
+    use_crops = mask_crops is not None
+    B, Vm = w2cs.shape[:2]
+    BV = B * Vm
+    pts3d = verts[:, ::vertex_stride]
+    proj = perspective_projection(
+        pts3d[:, None], w2cs[..., :3, :3], w2cs[..., :3, 3], Ks
+    ).reshape(BV, -1, 2)                                      # [BV, M, 2]
+    contour = contours.reshape(BV, -1, 2)
+    cvalid = contour_valid.reshape(BV, -1)
+    origin = vvalid = None
     if use_crops:
-        sampled, coverage = StayInsideSampleCrop.apply(
-            look_img, xyhat, origin, (H, W)
+        hw = tuple(full_hw) if full_hw is not None else (int(imsize),
+                                                         int(imsize))
+        look_img = mask_crops.reshape(BV, *mask_crops.shape[2:])
+        origin = mask_crop_origins.reshape(BV, 2)
+        vvalid = (
+            mask_view_valid.reshape(BV) if mask_view_valid is not None
+            else proj.new_ones(BV)
         )
-        binary = vvalid * torch.sum(coverage - sampled, dim=-1)
     else:
-        sampled, coverage = StayInsideSample.apply(look_img, xyhat)
-        binary = torch.sum(coverage - sampled, dim=-1)
+        hw = tuple(masks.shape[-2:])
+        look_img = masks.reshape(BV, *hw)
+
+    if (use_crops and set(terms) == {"icp", "binary"}
+            and FUSED_MASK_TERM == "fused"):
+        icp, binary = MaskViewTerms.apply(proj, contour, cvalid, look_img,
+                                          origin, vvalid, float(imsize),
+                                          float(epsilon), hw)
+    else:
+        icp, binary = separate_view_terms(
+            proj, contour, cvalid, look_img, origin, vvalid, imsize=imsize,
+            epsilon=epsilon, full_hw=hw, terms=terms)
     return (icp.reshape(B, Vm).sum(dim=1)
             + binary.reshape(B, Vm).sum(dim=1) * epsilon)

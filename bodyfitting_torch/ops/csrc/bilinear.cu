@@ -38,47 +38,11 @@
 // zeros, which is what the hinge form gives there.  All arithmetic is f32
 // without the TPU kernel's bf16 rounding of the hinge weights.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "silhouette.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// An image kind: how far apart its rows are, and the two taps at columns
-// c and c + 1 of a row (0 outside [0, W)), loaded before either is used.
-// f32 holds a pixel an element; a bit mask (uint32_t) holds pixel c of a
-// row as bit c % 32 of word c / 32, rows (W + 31) / 32 words apart.
-template <typename T>
-struct Image;
-
-template <>
-struct Image<float> {
-  static __device__ __forceinline__ int row_elems(int W) { return W; }
-  static __device__ __forceinline__ void taps(const float* row, int c, int W,
-                                              bool in, float& a, float& b) {
-    a = (in && c >= 0) ? __ldg(row + c) : 0.0f;
-    b = (in && c + 1 < W) ? __ldg(row + c + 1) : 0.0f;
-  }
-};
-
-template <>
-struct Image<uint32_t> {
-  static __device__ __forceinline__ int row_elems(int W) {
-    return (W + 31) >> 5;
-  }
-  static __device__ __forceinline__ void taps(const uint32_t* row, int c,
-                                              int W, bool in, float& a,
-                                              float& b) {
-    const bool ina = in && c >= 0, inb = in && c + 1 < W;
-    // c + 1 opens a word when c % 32 is 31 (or c is -1)
-    const bool split = ((c + 1) & 31) == 0;
-    const uint32_t wa = ina ? __ldg(row + (c >> 5)) : 0u;
-    const uint32_t wb = !split ? wa : inb ? __ldg(row + ((c + 1) >> 5)) : 0u;
-    a = (float)((wa >> (c & 31)) & 1u);
-    b = (float)(inb ? (wb >> ((c + 1) & 31)) & 1u : 0u);
-  }
-};
 
 // p / N for 0 <= p < 2^31 by a multiply and a shift, exact for every such
 // p: with 2^l >= N, m = ceil(2^(31 + l) / N) < 2^32 and s = 31 + l, the
@@ -109,52 +73,17 @@ bilinear_cov_grads_kernel(const T* __restrict__ img,
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= total) return;
   const float2 pxy = __ldg(reinterpret_cast<const float2*>(xy) + p);
-  const float x = pxy.x, y = pxy.y;
   const int bv = view_of(p, by_n), n = p - bv * N;
-
-  // outside (-1, W) x (-1, H) every hinge weight is zero; NaN fails too
-  const bool near = x > -1.0f && x < (float)W && y > -1.0f && y < (float)H;
-  const float fx = floorf(near ? x : 0.0f), fy = floorf(near ? y : 0.0f);
-  const int x0 = (int)fx, y0 = (int)fy;
-  // the 4 taps, loaded together
-  const int row = Image<T>::row_elems(W);
-  const T* im = img + (int64_t)bv * H * row;
-  float v00, v01, v10, v11;
-  Image<T>::taps(im + y0 * row, x0, W, near && y0 >= 0 && y0 < H, v00, v01);
-  Image<T>::taps(im + (y0 + 1) * row, x0, W, near && y0 + 1 < H, v10, v11);
-
-  float s = 0.f, c = 0.f, sx = 0.f, sy = 0.f, cx = 0.f, cy = 0.f;
-  if (near) {
-    const float wx = x - fx, wy = y - fy;
-    const float ux = 1.0f - wx, uy = 1.0f - wy;
-    s = uy * (ux * v00 + wx * v01) + wy * (ux * v10 + wx * v11);
-    const float gx = wx > 0.0f ? 1.0f : 0.0f;
-    const float gy = wy > 0.0f ? 1.0f : 0.0f;
-    if (with_grads) {
-      sx = gx * (uy * (v01 - v00) + wy * (v11 - v10));
-      sy = gy * (ux * (v10 - v00) + wx * (v11 - v01));
-    }
-    if (with_cov) {
-      const float r0 = (y0 >= 0 && y0 < H) ? 1.0f : 0.0f;
-      const float r1 = (y0 + 1 >= 0 && y0 + 1 < H) ? 1.0f : 0.0f;
-      const float c0 = (x0 >= 0 && x0 < W) ? 1.0f : 0.0f;
-      const float c1 = (x0 + 1 >= 0 && x0 + 1 < W) ? 1.0f : 0.0f;
-      const float rsum = uy * r0 + wy * r1;
-      const float csum = ux * c0 + wx * c1;
-      c = rsum * csum;
-      if (with_grads) {
-        cx = rsum * (gx * (c1 - c0));
-        cy = (gy * (r1 - r0)) * csum;
-      }
-    }
-  }
+  const T* im = img + (int64_t)bv * H * sil::Image<T>::row_elems(W);
+  const sil::Sample r = sil::bilinear_sample<T>(im, H, W, pxy.x, pxy.y,
+                                                with_grads, with_cov);
   float* o = out + (int64_t)bv * 6 * N + n;
-  o[0] = s;
-  o[(int64_t)N] = c;
-  o[(int64_t)2 * N] = sx;
-  o[(int64_t)3 * N] = sy;
-  o[(int64_t)4 * N] = cx;
-  o[(int64_t)5 * N] = cy;
+  o[0] = r.s;
+  o[(int64_t)N] = r.c;
+  o[(int64_t)2 * N] = r.sx;
+  o[(int64_t)3 * N] = r.sy;
+  o[(int64_t)4 * N] = r.cx;
+  o[(int64_t)5 * N] = r.cy;
 }
 
 // The launch geometry of BV x N points: out = {blocks, threads}.

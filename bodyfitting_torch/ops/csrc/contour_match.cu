@@ -41,39 +41,19 @@
 //     index.
 // 256 blocks of 512 threads at the production shape (2 resident an SM).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "silhouette.cuh"
 
 namespace {
 
-constexpr float kFar = 1e30f;
-constexpr int kWarps = 16;                      // warps a block
-constexpr int kThreads = kWarps * 32;
-constexpr int kG = 8;                           // pixels a warp
-constexpr int kLogG = 3;
-constexpr int kK = 4;                           // candidates a lane a chunk
-constexpr int kPixPerBlock = kWarps * kG;       // 128
-constexpr int kChunk = 32 * kK;                 // candidates a warp a chunk
-constexpr int kStage = 3072;                    // candidates a tile
-constexpr int kNone = 0x7fffffff;               // no winner (yet)
-static_assert(1 << kLogG == kG && kG <= 32, "kG is a power of two");
-static_assert(kStage % kChunk == 0 && kStage % kThreads == 0,
-              "a tile is whole chunks and whole block strides");
+using namespace sil::match;
 
-__device__ __forceinline__ float pair_d2(float cx, float cy, float2 q) {
-  const float dx = __fsub_rn(cx, q.x);
-  const float dy = __fsub_rn(cy, q.y);
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
-
-// (d, i) <- the lexicographic minimum of (d, i) and (od, oi)
-__device__ __forceinline__ void lexmin(float& d, int& i, float od, int oi) {
-  if (od < d || (od == d && oi < i)) {
-    d = od;
-    i = oi;
+// a candidate takes part when its valid flag is positive
+struct FlagValid {
+  const float* va;
+  __device__ __forceinline__ bool operator()(int m, float2) const {
+    return va[m] > 0.0f;
   }
-}
+};
 
 __global__ void __launch_bounds__(kThreads, 2) contour_match_full_kernel(
     const float* __restrict__ contour, const float* __restrict__ proj,
@@ -83,109 +63,13 @@ __global__ void __launch_bounds__(kThreads, 2) contour_match_full_kernel(
     int P, int M) {
   extern __shared__ float2 s_pt[];              // a tile of candidates
   const int bv = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const float* pr = proj + (int64_t)bv * M * 2;
-  const float* va = valid + (int64_t)bv * M;
-  const float* ct = contour + (int64_t)bv * P * 2;
-  const int pix0 = blockIdx.x * kPixPerBlock + warp * kG;
-  const float2 nan2 = make_float2(NAN, NAN);
-
-  float cx[kG], cy[kG], best[kG];
-  int bidx[kG];
-#pragma unroll
-  for (int g = 0; g < kG; ++g) {
-    const int p = pix0 + g;
-    cx[g] = p < P ? ct[(int64_t)p * 2] : NAN;   // NaN pixels never match
-    cy[g] = p < P ? ct[(int64_t)p * 2 + 1] : NAN;
-    best[g] = kFar;
-    bidx[g] = kNone;
-  }
-
-  for (int base = 0; base < M; base += kStage) {
-    // --- stage the tile, invalid candidates as NaN, padded to chunks;
-    // every load of a thread is issued before its first store
-    const int cnt = min(kStage, M - base);
-    const int npad = (cnt + kChunk - 1) / kChunk * kChunk;
-#pragma unroll
-    for (int s = 0; s < kStage / kThreads; ++s) {
-      const int i = threadIdx.x + s * kThreads;
-      if (i < npad) {
-        const int m = base + min(i, cnt - 1);   // the pad reads a real one
-        const bool v = va[m] > 0.0f;
-        const float2 q = make_float2(pr[(int64_t)m * 2], pr[(int64_t)m * 2 + 1]);
-        s_pt[i] = i < cnt && v ? q : nan2;
-      }
-    }
-    __syncthreads();
-
-    // --- sweep: each lane its candidates, 4 at a time, for 8 pixels
-    int bc[kG];
-#pragma unroll
-    for (int g = 0; g < kG; ++g) bc[g] = -1;
-    for (int ch = 0; ch < npad / kChunk; ++ch) {
-      const float2* sp = s_pt + ch * kChunk + lane;
-      float2 q[kK];
-#pragma unroll
-      for (int k = 0; k < kK; ++k) q[k] = sp[32 * k];
-#pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        float cm = pair_d2(cx[g], cy[g], q[0]);
-#pragma unroll
-        for (int k = 1; k < kK; ++k)
-          cm = fminf(cm, pair_d2(cx[g], cy[g], q[k]));
-        const bool better = cm < best[g];
-        best[g] = better ? cm : best[g];
-        bc[g] = better ? ch : bc[g];
-      }
-    }
-    // the first candidate of the winning chunk that equals the minimum
-#pragma unroll
-    for (int g = 0; g < kG; ++g) {
-      if (bc[g] >= 0) {
-        const int j0 = bc[g] * kChunk + lane;
-        int hit = j0;
-#pragma unroll
-        for (int k = kK - 1; k >= 0; --k)
-          if (pair_d2(cx[g], cy[g], s_pt[j0 + 32 * k]) == best[g])
-            hit = j0 + 32 * k;
-        bidx[g] = base + hit;
-      }
-    }
-    __syncthreads();                  // the next tile overwrites the stage
-  }
-
-  // --- the lexicographic minimum of (d2, m) over the warp's lanes.  Each
-  // round of the butterfly (lanes 16, 8, 4 apart) a lane keeps half of its
-  // pixels, takes its partner's values for them and sends its own for the
-  // other half; then one pixel a lane is left, reduced 2 and 1 apart.
-  int g_of_lane = 0;
-#pragma unroll
-  for (int r = 0; r < kLogG; ++r) {
-    const int h = kG >> (r + 1);
-    const bool up = lane & (16 >> r);
-    g_of_lane += up ? h : 0;
-#pragma unroll
-    for (int k = 0; k < h; ++k) {
-      float d = up ? best[k + h] : best[k];
-      int i = up ? bidx[k + h] : bidx[k];
-      const float od = __shfl_xor_sync(0xffffffffu, up ? best[k] : best[k + h],
-                                       16 >> r);
-      const int oi = __shfl_xor_sync(0xffffffffu, up ? bidx[k] : bidx[k + h],
-                                     16 >> r);
-      lexmin(d, i, od, oi);
-      best[k] = d;
-      bidx[k] = i;
-    }
-  }
-  float d = best[0];
-  int i = bidx[0];
-#pragma unroll
-  for (int o = 16 >> kLogG; o > 0; o >>= 1)
-    lexmin(d, i, __shfl_xor_sync(0xffffffffu, d, o),
-           __shfl_xor_sync(0xffffffffu, i, o));
-  const int p = pix0 + g_of_lane;
-  if ((lane & ((32 >> kLogG) - 1)) == 0 && p < P) {
+  int p, i;
+  float d;
+  bool owner;
+  nearest(contour + (int64_t)bv * P * 2, pr, FlagValid{valid + (int64_t)bv * M},
+          P, M, blockIdx.x * kPixPerBlock, s_pt, p, d, i, owner);
+  if (owner) {
     const int64_t o = (int64_t)bv * P + p;
     const bool hit = i != kNone;
     d2_out[o] = hit ? d : kFar;
@@ -200,10 +84,9 @@ __global__ void __launch_bounds__(kThreads, 2) contour_match_full_kernel(
 // threads, dynamic shared bytes}.  The shared memory holds one tile of
 // candidates, rounded up to whole chunks.
 void geometry(int BV, int P, int M, int* out) {
-  const int n = M < kStage ? M : kStage;
   out[0] = (P + kPixPerBlock - 1) / kPixPerBlock * BV;
   out[1] = kThreads;
-  out[2] = (n + kChunk - 1) / kChunk * kChunk * (int)sizeof(float2);
+  out[2] = stage_bytes(M);
 }
 
 }  // namespace

@@ -16,6 +16,12 @@ from bodyfitting_torch.ops.kernels.contour_match import (
     contour_match_full_plain,
     contour_min_idx,
 )
+from bodyfitting_torch.ops.kernels.mask_terms import (
+    mask_terms_backward,
+    mask_terms_backward_plain,
+    mask_terms_forward,
+    mask_terms_forward_plain,
+)
 from bodyfitting_torch.ops.kernels.nearest import (
     nearest_d2_idx,
     nearest_d2_idx_plain,
@@ -40,7 +46,7 @@ from bodyfitting_torch.ops.kernels.skinning import (
 
 KERNELS = (bilinear_cov_grads, contour_match_full, rows_scatter_add,
            nearest_d2_idx, rasterize_zbuf, rasterize_attrs, skin_forward,
-           skin_backward)
+           skin_backward, mask_terms_forward, mask_terms_backward)
 
 
 def reset_launch_counts() -> None:
@@ -57,6 +63,8 @@ __all__ = [
     "unpack_bits",
     "contour_match_full", "contour_match_full_plain", "contour_min_idx",
     "rows_scatter_add", "rows_scatter_add_plain",
+    "mask_terms_forward", "mask_terms_forward_plain", "mask_terms_backward",
+    "mask_terms_backward_plain",
     "nearest_d2_idx", "nearest_d2_idx_plain",
     "rasterize_zbuf", "rasterize_zbuf_plain",
     "rasterize_attrs", "rasterize_attrs_plain",

@@ -6,8 +6,8 @@ Each ``.cu`` file is a plain-C shared library (no PyTorch headers, so
 unfilter, the JPEG decoder, the OBJ parser), built the same way with the
 system C++ compiler, the one ``nvcc`` uses for host code; it needs no
 CUDA toolkit.  The library name
-carries a hash of its source and flags, so an edited source is rebuilt,
-never loaded stale.  All sources are compiled in parallel, one compiler
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt, never loaded stale.  All sources are compiled in parallel, one compiler
 process each.
 
 Nothing here runs at import time: CPU-only machines import the kernel
@@ -36,8 +36,8 @@ NVCC_FLAGS = (
 )
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
-SOURCES = ("bilinear", "contour_match", "nearest", "raster", "rows_scatter",
-           "skinning")
+SOURCES = ("bilinear", "contour_match", "mask_terms", "nearest", "raster",
+           "rows_scatter", "skinning")
 HOST_SOURCES = ("png_unfilter", "jpeg_decode", "obj_parse")
 
 _LIBS: dict = {}
@@ -70,8 +70,12 @@ def _lib_path(name: str) -> tuple[str, str]:
     host = name in HOST_SOURCES
     src = os.path.join(CSRC, f"{name}.cpp" if host else f"{name}.cu")
     flags = CXX_FLAGS if host else NVCC_FLAGS
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha1(" ".join(flags).encode())
+    headers = () if host else sorted(
+        n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for path in (src, *(os.path.join(CSRC, n) for n in headers)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
@@ -133,13 +137,14 @@ def library(name: str) -> ctypes.CDLL:
 _FNS: dict = {}
 
 
-def _bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
+def _bind(name: str, symbol: str, n_ptrs: int, n_ints: int,
+          n_floats: int = 0):
     key = (name, symbol)
     fn = _FNS.get(key)
     if fn is None:
         fn = getattr(library(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[key] = fn
     return fn
@@ -190,14 +195,17 @@ def geometry(name: str, symbol: str, ints,
     return dict(zip(keys, out))
 
 
-def launch(name: str, symbol: str, device, ptrs, ints) -> None:
-    """Call ``symbol`` of ``csrc/<name>.cu`` on ``device``'s current
-    stream; raises if the launch was refused."""
+def launch(name: str, symbol: str, device, ptrs, ints, floats=()) -> None:
+    """Call ``symbol(*ptrs, *ints, *floats, stream)`` of
+    ``csrc/<name>.cu`` on ``device``'s current stream (``floats`` pass as
+    C floats, rounded to f32 as PyTorch rounds a Python float); raises if
+    the launch was refused."""
     import torch
 
-    fn = _bind(name, symbol, len(ptrs), len(ints))
+    fn = _bind(name, symbol, len(ptrs), len(ints), len(floats))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, *[int(i) for i in ints], stream)
+        err = fn(*ptrs, *[int(i) for i in ints],
+                 *[float(x) for x in floats], stream)
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed (cudaError {err})")

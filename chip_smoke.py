@@ -213,9 +213,28 @@ Phases; the first failure ends the run with a non-zero exit code:
    bitwise its plain version, timed beside the library call and the
    bound (the kernel table's rows with ``"phase": 13``, with (d)'s).
 
+14. the fused per-view mask term (``FUSED_MASK_TERM = "fused"``), run
+   right after phase 5 on phase 3's fit: (a) the fit's loss and
+   gradient at its final state through the fused and the separate
+   route (1e-5), the fused kernels' arguments recorded there; (b)
+   ``mask_terms_forward`` (two launches for all 64 views) and
+   ``mask_terms_backward`` (one) bitwise their plain versions on those
+   arguments, and a second launch bitwise the first; (c) the routes at
+   the recorded projection: each view's ICP and stay-inside terms
+   (1e-5 relative) and the projection's gradient (2e-6 of its largest
+   entry); (d) 20 post-gate steps of the fit a route, in turns
+   (separate, fused, fused, separate), ms a step on the host clock, the
+   counters zeroed around the first fused run (2 forward launches and 1
+   backward a step; the separate kernels none); (e) 10 post-gate steps
+   a route under torch.profiler: kernels and copies a step, and exactly
+   one launch of each fused kernel a fused step; (f) each route's
+   forward and backward a call: device busy time and kernels
+   (profiler), host time; the kernels timed beside their plain versions
+   and their bound.
+
 The line before the last is the kernel table as one JSON object (phase
-12's three rows and phase 13's five carry a ``phase`` key); the last
-line is ``{"ok": true, "device": {...}}``.
+12's three rows, phase 13's five and phase 14's two carry a ``phase``
+key); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -484,15 +503,18 @@ def make_scan_problem(model, n_views, imsize, subdivisions, seed,
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("bilinear_cov_grads", "contour_match_full", "rows_scatter_add")
+# the fused per-view mask term's kernels (FUSED_MASK_TERM = "fused")
+FUSED_NAMES = ("mask_terms_forward", "mask_terms_backward")
 
 
 @contextlib.contextmanager
-def silhouette_ops(replace):
-    """Temporarily replace the silhouette loss's kernel entry points:
-    ``replace(name, fn)`` returns the function to call instead."""
+def silhouette_ops(replace, names=KERNEL_NAMES):
+    """Temporarily replace the silhouette loss's kernel entry points
+    ``names``: ``replace(name, fn)`` returns the function to call
+    instead."""
     from bodyfitting_torch.losses import silhouette as sil
 
-    orig = {n: getattr(sil, n) for n in KERNEL_NAMES}
+    orig = {n: getattr(sil, n) for n in names}
     for n, fn in orig.items():
         setattr(sil, n, replace(n, fn))
     try:
@@ -900,31 +922,43 @@ def phase_main_path(profile: bool, size=MAIN_PATH, device="cuda"):
                 digest=digest)
 
 
-def profile_steps(step_fn, steps, what="post-gate steps"):
+def traced(run, n):
+    """``run()`` under torch.profiler, per unit of ``n`` (steps or calls):
+    host-clock ``wall_ms``, device ``busy_ms`` (the sum of its kernels'
+    and copies' device time, gaps excluded), ``calls`` (kernels and
+    copies) and ``by_name`` {kernel: (launches, device us)}, with the
+    events."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for i in steps:
-            step_fn(i)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    from torch.autograd import DeviceType
-
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
-    calls = sum(e.count for e in events) / len(steps)
-    log(f"profile: {len(steps)} {what}, {wall * 1e3:.1f} ms wall, "
-        f"device busy {dev_us / 1e3:.1f} ms "
-        f"({100 * dev_us / 1e3 / (wall * 1e3):.1f} %), {calls:.0f} device "
-        f"kernels and copies a step")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"  {e.self_device_time_total / len(steps):9.1f} us/step "
-            f"{e.count // len(steps):5d} calls/step  {e.key[:90]}")
+    return dict(wall_ms=wall * 1e3 / n, busy_ms=dev_us / 1e3 / n,
+                calls=sum(e.count for e in events) / n,
+                by_name={e.key: (e.count / n, e.self_device_time_total / n)
+                         for e in events}, events=events)
+
+
+def profile_steps(step_fn, steps, what="post-gate steps"):
+    n = len(steps)
+    r = traced(lambda: [step_fn(i) for i in steps], n)
+    log(f"profile: {n} {what}, {r['wall_ms'] * n:.1f} ms wall, "
+        f"device busy {r['busy_ms'] * n:.1f} ms "
+        f"({100 * r['busy_ms'] / r['wall_ms']:.1f} %), {r['calls']:.0f} "
+        f"device kernels and copies a step")
+    for e in sorted(r["events"], key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / n:9.1f} us/step "
+            f"{e.count // n:5d} calls/step  {e.key[:90]}")
+    return r
 
 
 def phase_checks(state, devices=("cuda", "cpu")):
@@ -4779,6 +4813,287 @@ def phase_parallel(app=None, size=PHASE13, device="cuda"):
                 wall_single=wall_single, ranks=ranks)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the fused per-view mask term (FUSED_MASK_TERM = "fused")
+# ---------------------------------------------------------------------------
+
+FUSED_TPU = {
+    "mask_terms_forward": "bodyfitting_tpu/losses/silhouette.py:606",
+    "mask_terms_backward": "bodyfitting_tpu/losses/silhouette.py:615",
+}
+FUSED_SOURCE = "bodyfitting_torch/ops/csrc/mask_terms.cu"
+# The fused route against the separate one, per view and on dproj: the
+# same per-point arithmetic, the per-view sums in other orders (a tree of
+# halves against torch.sum's reduction, both O(log n) deep: a few 1e-7),
+# and the ICP cotangent rounded in another order (JAX's own tolerance).
+FUSED_RTOL = 1e-5
+FUSED_GRAD_ATOL = 2e-6          # of the largest dproj entry
+# f32 operations a projected vertex (scale, origin, the sampler with its
+# derivatives, the closed-form coverage, the three differences) and a
+# contour pixel after its match (distance, lookup, coefficient, terms);
+# the match itself is counted as check_contour counts it, 7 a pair.
+VERTEX_OPS, PIXEL_OPS, PAIR_OPS = 46, 25, 7
+
+
+@contextlib.contextmanager
+def mask_route(route):
+    """``FUSED_MASK_TERM = route`` for the block."""
+    from bodyfitting_torch.losses import silhouette as sil
+
+    old = sil.FUSED_MASK_TERM
+    sil.FUSED_MASK_TERM = route
+    try:
+        yield
+    finally:
+        sil.FUSED_MASK_TERM = old
+
+
+def route_terms(route, args, imsize, epsilon, full_hw):
+    """``(icp [BV], binary [BV], dproj [BV, M, 2])`` at ``proj = args[0]``
+    through one route: "fused" (``MaskViewTerms``) or the separate ops;
+    dproj is the gradient of ``sum(icp) + epsilon sum(binary)``."""
+    import torch
+
+    from bodyfitting_torch.losses import silhouette as sil
+
+    proj = args[0].detach().clone().requires_grad_(True)
+    if route == "fused":
+        icp, binary = sil.MaskViewTerms.apply(proj, *args[1:], imsize,
+                                              epsilon, full_hw)
+    else:
+        icp, binary = sil.separate_view_terms(
+            proj, *args[1:], imsize=imsize, epsilon=epsilon, full_hw=full_hw)
+    (dproj,) = torch.autograd.grad(icp.sum() + binary.sum() * epsilon, proj)
+    return icp.detach(), binary.detach(), dproj
+
+
+def kernels_a_step(prof, names):
+    """``{name: (launches, device us)}`` a unit for the kernels whose
+    names hold each of ``names``, from :func:`traced`'s result."""
+    return {n: tuple(sum(v[j] for k, v in prof["by_name"].items() if n in k)
+                     for j in (0, 1)) for n in names}
+
+
+def phase_fused_mask(state, device="cuda", n_steps=20, smi=""):
+    """Phase 14: the fused route on phase 3's fit (see the docstring)."""
+    import torch
+
+    from bodyfitting_torch.fitting import smplify
+    from bodyfitting_torch.losses import silhouette as sil
+    from bodyfitting_torch.ops import kernels as K
+    from bodyfitting_torch.ops.kernels import mask_terms as MT
+
+    on_card = torch.device(device).type == "cuda"
+    assert sil.FUSED_MASK_TERM == "auto", sil.FUSED_MASK_TERM
+    cfg = state["config"]
+
+    # (a) the fit's loss and gradient at its final state by both routes,
+    # the fused kernels' arguments recorded
+    calls = {n: [] for n in FUSED_NAMES}
+
+    def record(name, fn):
+        def wrapped(*a, **kw):
+            calls[name].append((a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    args = (state["models"], cfg, state["params"], state["obs"],
+            state["prior"], cfg.num_iters - 1)
+    with mask_route("fused"), silhouette_ops(record, FUSED_NAMES):
+        lf, gf = loss_and_grads(*args)
+    with mask_route("separate"):
+        ls, gs = loss_and_grads(*args)
+    loss_err = float(((lf - ls).abs() / ls.abs()).max())
+    top = max(float(g.abs().max()) for g in gs)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(gf, gs)) / top
+    log(f"fused (a): fit loss at the final state, fused vs separate route: "
+        f"max rel err {loss_err:.3e} (tol 1e-5); gradient max err "
+        f"{grad_err:.3e} of the largest entry (tol 1e-5)")
+    assert loss_err <= 1e-5 and grad_err <= 1e-5
+    ((fargs, _),) = calls["mask_terms_forward"]
+    ((bargs, _),) = calls["mask_terms_backward"]
+    fargs = (fargs[0].detach(), *fargs[1:])
+    proj, contour, cvalid, crop, origin, vvalid, imsize, eps, full_hw = fargs
+    BV, M, _ = proj.shape
+    P = contour.shape[1]
+
+    # (b) both kernels bitwise their plain versions, and a second launch
+    got = K.mask_terms_forward(*fargs)
+    again = K.mask_terms_forward(*fargs)
+    ref = K.mask_terms_forward_plain(*fargs)
+    dk = K.mask_terms_backward(*bargs)
+    dk2 = K.mask_terms_backward(*bargs)
+    dp = K.mask_terms_backward_plain(*bargs)
+    sync(device)
+    same = {n: torch.equal(a, b)
+            for n, a, b in zip(("sums", "idx", "pix", "vert"), got, ref)}
+    same["dproj"] = torch.equal(dk, dp)
+    repeat = (all(torch.equal(a, b) for a, b in zip(got, again))
+              and torch.equal(dk, dk2))
+    f_err = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, ref))
+    b_err = float((dk - dp).abs().max())
+    log(f"fused (b): BV {BV} P {P} M {M}, crops {tuple(crop.shape)} "
+        f"{crop.dtype}; kernels bitwise equal to plain: {same}; two "
+        f"launches bitwise equal: {repeat} (tol: exact)")
+    assert all(same.values()) and repeat, same
+
+    # (c) the routes at the captured projection, value and dproj
+    ti, tb, td = route_terms("fused", fargs[:6], imsize, eps, full_hw)
+    si, sb, sd = route_terms("separate", fargs[:6], imsize, eps, full_hw)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    icp_err, bin_err = rel(ti, si), rel(tb, sb)
+    d_err = float((td - sd).abs().max()) / float(sd.abs().max())
+    log(f"fused (c): fused vs separate per view: icp max rel err "
+        f"{icp_err:.3e}, binary {bin_err:.3e} (tol {FUSED_RTOL:g}); dproj "
+        f"max err {d_err:.3e} of the largest entry (tol "
+        f"{FUSED_GRAD_ATOL:g})")
+    assert max(icp_err, bin_err) <= FUSED_RTOL and d_err <= FUSED_GRAD_ATOL
+
+    # (d) 20 post-gate steps of phase 3's fit a route, in turns, the
+    # counters zeroed around the first fused run (the fused path's run)
+    fresh = smplify.FitParams.from_tensors(
+        [p.clone() for p in state["init"].tensors()])
+    step_fn = smplify.make_step_fn(state["model"], cfg, state["obs"],
+                                   state["prior"],
+                                   smplify.make_optimizer(cfg, fresh))
+    i = cfg.num_iters // cfg.stage_gate_den + 1
+    for route in ("separate", "fused"):
+        with mask_route(route):
+            steps_ms(step_fn, range(i, i + 3), device)
+        i += 3
+    step = {"separate": [], "fused": []}
+    launches = None
+    for route in ("separate", "fused", "fused", "separate"):
+        with mask_route(route):
+            if route == "fused" and launches is None:
+                K.reset_launch_counts()
+                step[route].append(steps_ms(step_fn, range(i, i + n_steps),
+                                            device))
+                launches = K.launch_counts()
+            else:
+                step[route].append(steps_ms(step_fn, range(i, i + n_steps),
+                                            device))
+        i += n_steps
+    log(f"fused (d): ms a post-gate step, {n_steps} steps a run, host clock "
+        f"(separate, fused, fused, separate): "
+        + ", ".join(f"{r} {t:.3f}" for r, t in (
+            ("separate", step["separate"][0]), ("fused", step["fused"][0]),
+            ("fused", step["fused"][1]), ("separate", step["separate"][1])))
+        + f"; launches in the fused run {launches}; {smi}")
+    if on_card:
+        assert launches["mask_terms_forward"] == 2 * n_steps, launches
+        assert launches["mask_terms_backward"] == n_steps, launches
+        for name in KERNEL_NAMES:
+            assert launches[name] == 0, launches
+    rows = dict(
+        mask_terms_forward=dict(max_abs_err=f_err, shape=f"BV {BV} P {P} "
+                                f"M {M}", launch=MT.forward_geometry(BV, P, M)
+                                if on_card else None),
+        mask_terms_backward=dict(max_abs_err=b_err, shape=f"BV {BV} P {P} "
+                                 f"M {M}", launch=MT.backward_geometry(BV, P, M)
+                                 if on_card else None))
+    if not on_card:
+        return [dict(name=n, launches=launches[n], **r)
+                for n, r in rows.items()]
+    log(f"fused launch geometry: forward {rows['mask_terms_forward']['launch']}"
+        f", backward {rows['mask_terms_backward']['launch']}")
+
+    # (e) kernels a post-gate step under each route, traced
+    per_step = {}
+    for route in ("separate", "fused"):
+        with mask_route(route):
+            prof = profile_steps(step_fn, range(i, i + 10),
+                                 f"post-gate steps, FUSED_MASK_TERM "
+                                 f"\"{route}\"")
+        i += 10
+        per_step[route] = dict(calls=prof["calls"], busy_ms=prof["busy_ms"],
+                               wall_ms=prof["wall_ms"],
+                               **kernels_a_step(prof, (
+                                   "mask_terms_points_kernel",
+                                   "mask_terms_sums_kernel",
+                                   "mask_terms_backward_kernel",
+                                   "bilinear_cov_grads_kernel",
+                                   "contour_match_full_kernel",
+                                   "rows_scatter_add_kernel")))
+    log(f"fused (e): kernels and copies a post-gate step: separate "
+        f"{per_step['separate']['calls']:.0f}, fused "
+        f"{per_step['fused']['calls']:.0f}; by kernel {per_step}")
+    f = per_step["fused"]
+    assert (f["mask_terms_points_kernel"][0] == 1
+            and f["mask_terms_sums_kernel"][0] == 1
+            and f["mask_terms_backward_kernel"][0] == 1), f
+    assert f["bilinear_cov_grads_kernel"][0] == 0, f
+    assert per_step["separate"]["mask_terms_points_kernel"][0] == 0
+
+    # (f) each route a call, forward and backward: device busy time and
+    # kernels (torch.profiler; CUDA events would time the host, which
+    # cannot keep the separate route's many small kernels queued) and the
+    # host clock; the kernels alone beside their plain versions
+    route_us = {}
+    for route in ("separate", "fused", "fused", "separate"):
+        def fn(r=route):
+            return route_terms(r, fargs[:6], imsize, eps, full_hw)
+        fn()
+        tr = traced(lambda: [fn() for _ in range(20)], 20)
+        route_us.setdefault(route, []).append(dict(
+            device_us=tr["busy_ms"] * 1e3, kernels=tr["calls"],
+            host_us=host_ms(fn) * 1e3))
+    log("fused (f): a route's forward and backward a call at BV "
+        f"{BV}, P {P}, M {M} (separate, fused, fused, separate): " + "; ".join(
+            f"{r} {d['device_us']:.1f} us device, {d['kernels']:.0f} kernels "
+            f"and copies, {d['host_us']:.1f} us host" for r, d in (
+                ("separate", route_us["separate"][0]),
+                ("fused", route_us["fused"][0]),
+                ("fused", route_us["fused"][1]),
+                ("separate", route_us["separate"][1]))))
+    kernel_us = kernels_a_step(traced(
+        lambda: [route_terms("fused", fargs[:6], imsize, eps, full_hw)
+                 for _ in range(20)], 20),
+        ("mask_terms_points_kernel", "mask_terms_sums_kernel",
+         "mask_terms_backward_kernel"))
+    log(f"fused (f): each kernel's device us a call (launches, us): "
+        f"{kernel_us}")
+    fwd = cuda_ms(lambda: K.mask_terms_forward(*fargs))
+    fwd_plain = cuda_ms(lambda: K.mask_terms_forward_plain(*fargs), reps=10)
+    fwd_host = host_ms(lambda: K.mask_terms_forward(*fargs))
+    bwd = cuda_ms(lambda: K.mask_terms_backward(*bargs))
+    bwd_plain = cuda_ms(lambda: K.mask_terms_backward_plain(*bargs), reps=10)
+    bwd_host = host_ms(lambda: K.mask_terms_backward(*bargs))
+    idx, pix, vert = got[1:]
+    live = int((pix[:, 1] != 0).sum())
+    fb, fby = bound_ms(
+        nbytes(proj, contour, cvalid, crop, origin, vvalid, *got),
+        PAIR_OPS * BV * P * M + VERTEX_OPS * BV * M + PIXEL_OPS * BV * P
+        + BV * (P + M))
+    bb, bby = bound_ms(
+        nbytes(idx, pix[:, 1:], vert[:, 1:], bargs[3], bargs[4], vvalid, dk),
+        5 * live + 6 * BV * M)
+    log(f"mask_terms_forward: {fwd:.4f} ms (two launches), plain "
+        f"{fwd_plain:.4f} ms, bound {fb:.4f} ms ({fby}); {fwd_host:.4f} ms "
+        f"per call on the host clock")
+    log(f"mask_terms_backward: {bwd:.4f} ms, plain {bwd_plain:.4f} ms, bound "
+        f"{bb:.4f} ms ({bby}); {bwd_host:.4f} ms per call on the host clock; "
+        f"{live} of {BV * P} contour pixels matched")
+    times = dict(mask_terms_forward=(fwd, fwd_plain, fb, fby),
+                 mask_terms_backward=(bwd, bwd_plain, bb, bby))
+    table = []
+    for name, r in rows.items():
+        ms, plain, b, by = times[name]
+        table.append(dict(
+            name=name, route="cuda", source=FUSED_SOURCE,
+            replaces=FUSED_TPU[name], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=ms, plain_ms=plain, bound_ms=b,
+            bound_by=by, library_ms=None, shape=r["shape"], phase=14,
+            step_ms=step, kernels_a_step={k: v["calls"]
+                                          for k, v in per_step.items()},
+            route_us=route_us, kernel_us=kernel_us))
+    return table
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4802,6 +5117,7 @@ def main():
     state = phase_main_path(cli.profile)
     phase_checks(state)
     table = phase_kernels(state)
+    table.extend(phase_fused_mask(state, smi=smi))
     scan = phase_scan(smi=smi, profile=cli.profile,
                       save_volume=cli.save_volume)
     table.append(nearest_row(scan))

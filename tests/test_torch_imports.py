@@ -214,6 +214,16 @@ def test_kernel_wrappers_refuse_other_devices():
         K.nearest_d2_idx(torch.empty((2, 3), device="meta"),
                          torch.empty((1, 3, 3), device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
+        K.mask_terms_forward(*[torch.empty(s, device="meta") for s in (
+            (1, 3, 2), (1, 2, 2), (1, 2), (1, 4, 4), (1, 2), (1,))],
+            8.0, 10.0, (8, 8))
+    with pytest.raises(ValueError, match="different devices"):
+        K.mask_terms_backward(torch.zeros((1, 2), dtype=torch.int32),
+                              torch.zeros((1, 4, 2)),
+                              torch.empty((1, 3, 3), device="meta"),
+                              torch.ones(1), torch.ones(1), torch.ones(1),
+                              (1.0, 1.0))
+    with pytest.raises(ValueError, match="unsupported device"):
         K.rasterize_zbuf(torch.empty((1, 3, 2), device="meta"),
                          torch.empty((1, 3), device="meta"), 8)
     with pytest.raises(ValueError, match="different devices"):
@@ -243,7 +253,9 @@ def test_kernel_wrappers_refuse_other_devices():
                                  "rasterize_zbuf": 0,
                                  "rasterize_attrs": 0,
                                  "skin_forward": 0,
-                                 "skin_backward": 0}
+                                 "skin_backward": 0,
+                                 "mask_terms_forward": 0,
+                                 "mask_terms_backward": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -34,6 +34,7 @@ from bodyfitting_torch.losses.silhouette import (
 )
 from bodyfitting_torch.ops import sdf
 from bodyfitting_torch.ops.rotations import rotmat_to_aa_np
+from bodyfitting_torch.utils.observability import span
 
 
 @dataclasses.dataclass
@@ -240,10 +241,11 @@ def _keypoint_and_mask_observations(
         origins = np.zeros((Vm, 2), np.float32)
         vvalid = np.zeros((Vm,), np.float32)
     else:
-        contours, valid = extract_contours(masks, pad_to=contour_pad)
-        if contour_resample and contours.shape[1] > contour_resample:
-            contours, valid = resample_contours(contours, valid,
-                                                contour_resample)
+        with span("observations.contours"):
+            contours, valid = extract_contours(masks, pad_to=contour_pad)
+            if contour_resample and contours.shape[1] > contour_resample:
+                contours, valid = resample_contours(contours, valid,
+                                                    contour_resample)
         mw2cs = np.linalg.inv(np.asarray(mask_c2ws, np.float32))
         mKs = np.asarray(mask_Ks, np.float32)
         mask_arr = crops = origins = vvalid = None

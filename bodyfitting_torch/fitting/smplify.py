@@ -48,6 +48,7 @@ from bodyfitting_torch.losses.silhouette import (
 from bodyfitting_torch.models import body_model as bm
 from bodyfitting_torch.ops import sdf
 from bodyfitting_torch.ops.nearest import nearest_points
+from bodyfitting_torch.utils.observability import span
 
 MESH_LOSS_IMPLS = ("sdf", "exact")
 
@@ -255,20 +256,23 @@ class Adam:
 
     @torch.no_grad()
     def step(self, grads: list) -> None:
-        self.count += 1
-        p0 = self.params[0]
-        # decay ** count in the working dtype, as optax computes it
-        b1c = 1 - torch.tensor(self.b1, dtype=p0.dtype) ** self.count
-        b2c = 1 - torch.tensor(self.b2, dtype=p0.dtype) ** self.count
-        b1c, b2c = b1c.to(p0.device), b2c.to(p0.device)
-        for p, g, mu, nu, lr in zip(self.params, grads, self.mu, self.nu,
-                                    self.lrs):
-            if lr == 0.0:
-                continue
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            upd = (mu / b1c) / (torch.sqrt(nu / b2c) + self.eps)
-            p.add_(-lr * upd)
+        # the span opens in the method's own body: a wrapper of the
+        # method (a profiler's step marker) stays outside it
+        with span("fit.update"):
+            self.count += 1
+            p0 = self.params[0]
+            # decay ** count in the working dtype, as optax computes it
+            b1c = 1 - torch.tensor(self.b1, dtype=p0.dtype) ** self.count
+            b2c = 1 - torch.tensor(self.b2, dtype=p0.dtype) ** self.count
+            b1c, b2c = b1c.to(p0.device), b2c.to(p0.device)
+            for p, g, mu, nu, lr in zip(self.params, grads, self.mu,
+                                        self.nu, self.lrs):
+                if lr == 0.0:
+                    continue
+                mu.copy_((1 - self.b1) * g + self.b1 * mu)
+                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+                upd = (mu / b1c) / (torch.sqrt(nu / b2c) + self.eps)
+                p.add_(-lr * upd)
 
 
 def make_optimizer(config: FitConfig, params: FitParams) -> Adam:
@@ -428,23 +432,33 @@ def make_step_fn(model, config: FitConfig, obs: Observations,
     """One Adam step, shared by every entry point: ``step_fn(step)``
     updates ``opt.params`` in place and returns the per-frame loss
     ``[B]`` before the update (detached).  ``view_group``: as in
-    :func:`fit_loss`."""
+    :func:`fit_loss`.  Under a recording profiler each step is a
+    ``fit.step`` span holding ``fit.loss`` then ``fit.grad``, followed by
+    :meth:`Adam.step`'s ``fit.update``."""
     loss_model, joints_model, mask_rows = loss_models(model, config)
     obs = step_observations(obs)
     leaves = opt.params
 
     def step_fn(step: int) -> torch.Tensor:
-        for p in leaves:
-            p.requires_grad_(True)
-        params = FitParams.from_tensors(leaves)
-        loss, _ = fit_loss(loss_model, config, params, obs, step,
-                           pose_prior_fn, joints_model=joints_model,
-                           mask_vertex_rows=mask_rows, view_group=view_group)
-        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        for p in leaves:
-            p.requires_grad_(False)
+        with span("fit.step"):
+            for p in leaves:
+                p.requires_grad_(True)
+            params = FitParams.from_tensors(leaves)
+            with span("fit.loss"):
+                loss, _ = fit_loss(loss_model, config, params, obs, step,
+                                   pose_prior_fn, joints_model=joints_model,
+                                   mask_vertex_rows=mask_rows,
+                                   view_group=view_group)
+            with span("fit.grad"):
+                grads = torch.autograd.grad(loss.sum(), leaves,
+                                            allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+            for p in leaves:
+                p.requires_grad_(False)
+        # outside fit.step: a wrapper of Adam.step may stop a bounded
+        # profiler, and a span still open then is closed at the trace's
+        # end, long after the step
         opt.step(grads)
         return loss.detach()
 

@@ -1,10 +1,12 @@
-"""Observability: loss traces and stage timing.
+"""Observability: loss traces, stage timing and the program's spans.
 
 Counterpart of ``bodyfitting_tpu/utils/observability.py``:
 :class:`LossTrace` appends each fitted frame's loss curve to a JSONL file
-(``loss_trace.jsonl``); :class:`StageTimer` and :func:`timed` record wall
-time per pipeline stage (``timing.json`` under ``--timing``);
+(``loss_trace.jsonl``); :class:`StageTimer` records wall time per
+pipeline stage (``timing.json`` under ``--timing``);
 :func:`profiler_trace` records a ``torch.profiler`` trace of a block.
+:func:`span` names a part of the program in that trace: the fit step
+and its loss, gradient and update, the contour tracing, each stage.
 """
 
 from __future__ import annotations
@@ -17,6 +19,21 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named ``name`` in the trace of the ``torch.profiler`` that
+    is recording on this thread (``torch.profiler.record_function``, a
+    ``user_annotation`` event on the clock of the card's kernels), nested
+    in the span open around it.  With no profiler recording it is one
+    shared no-op context: no ``record_function`` is built, so a span
+    costs the flag check alone."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class LossTrace:
@@ -55,7 +72,9 @@ class LossTrace:
 
 class StageTimer:
     """Accumulates wall time per named pipeline stage (thread-safe: the
-    app's stages run on prep and writer threads)."""
+    app's stages run on prep and writer threads).  Each stage is also a
+    :func:`span`, recorded when it runs on the thread of a recording
+    profiler."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
@@ -66,7 +85,8 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
@@ -90,21 +110,12 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def timed(name: str, log=print):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        log(f"[timing] {name}: {time.perf_counter() - t0:.3f}s")
-
-
-@contextlib.contextmanager
 def profiler_trace(log_dir: str):
     """Trace the block with ``torch.profiler`` (host, and the card's
     kernels when CUDA is available) and write it as a Chrome trace,
     ``log_dir/trace.json`` (open it in Perfetto or ``chrome://tracing``).
-    Yields the profiler."""
-    import torch
+    Yields the profiler.  The spans (:func:`span`) that the block opens on
+    this thread are in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -297,10 +297,6 @@ def test_loss_trace_and_stage_timer_match(tmp_path):
     with timer.stage("a"):
         pass
     timer.dump(str(tmp_path / "t" / "timing.json"))
-    said = []
-    with pobs.timed("stage x", log=said.append):
-        pass
-    assert said and said[0].startswith("[timing] stage x: ")
     s = json.load(open(tmp_path / "t" / "timing.json"))
     assert s["a"]["calls"] == 2 and set(s["a"]) == {"total_s", "calls",
                                                     "mean_s"}

@@ -66,10 +66,13 @@ def keypoint_ops(n_joints: int, views: int) -> float:
 
 
 def mask_rows(cfg) -> int:
-    """The vertex rows the mask fit's step reads: every 4th vertex, the
-    vertex-picked joints and the landmark triangles' corners."""
+    """The vertex rows the step of a multi-view fit reads: the
+    vertex-picked joints and the landmark triangles' corners, and with
+    masks every 4th vertex (one merged model before and after the
+    gate)."""
     m = cfg["model"]
-    return -(-m["num_verts"] // 4) + m["vertex_joints"] \
+    strided = -(-m["num_verts"] // 4) if cfg["fit"].get("use_mask") else 0
+    return strided + m["vertex_joints"] \
         + 3 * (m["face_landmarks"] + m["contour_landmarks"])
 
 
@@ -90,13 +93,16 @@ def silhouette(cfg, frames: int):
 
 
 def mask_step_ops(cfg, frames: int):
-    """``(pre-gate, post-gate)`` operations of one step of the mask fit."""
+    """``(pre-gate, post-gate)`` operations of one step of a multi-view
+    fit; without masks the two are alike."""
     m, r = cfg["model"], cfg["rig"]
     J, rows = m["num_joints"], mask_rows(cfg)
     fwd = forward_ops(rows, J, m["betas"] + m["expressions"],
                       9 * (J - 1)) + keypoint_ops(r["keypoints"], r["views"])
-    post = fwd + r["mask_views"] * -(-m["num_verts"] // 4) * PROJECT_OPS \
-        + silhouette(cfg, 1)[0]
+    post = fwd
+    if cfg["fit"].get("use_mask"):
+        post = fwd + r["mask_views"] * -(-m["num_verts"] // 4) \
+            * PROJECT_OPS + silhouette(cfg, 1)[0]
     params = m["betas"] + 3 * 7 + 3 * m["body_joints"] + 2 * 6 + 4
     return tuple(frames * ((1 + BACKWARD) * f + ADAM_OPS * params)
                  for f in (fwd, post))
@@ -108,7 +114,8 @@ def gate_step(cfg) -> int:
 
 
 def mask_fit_ops(cfg, frames: int) -> float:
-    """Operations of a whole mask fit (the gate's steps and the rest)."""
+    """Operations of a whole multi-view fit (the gate's steps and the
+    rest)."""
     n, gate = cfg["fit"]["num_iters"], gate_step(cfg)
     pre, post = mask_step_ops(cfg, frames)
     return (gate + 1) * pre + (n - gate - 1) * post

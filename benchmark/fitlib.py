@@ -175,19 +175,23 @@ def gate_probe(step):
         smplify.Adam.step = orig
 
 
-def grad_gap(got, want, floor=1e-3):
+def grad_gap(got, want, floor=1e-3, allow=None):
     """Per frame (leading axis), the worst leaf's gap between the norms of
-    ``got`` and ``want`` (lists of leaves ``[B, ...]``) over the larger of
-    the reference's norm of that leaf and of the frame's median leaf; a
-    leaf whose reference gradient is under ``floor`` times the median
-    leaf's is nought to rounding and left out."""
+    ``got`` and ``want`` (lists of leaves ``[B, ...]``), less the leaf's
+    ``allow [B, leaves]`` (what the reference's near-ties explain), over
+    the larger of the reference's norm of that leaf and of the frame's
+    median leaf; a leaf whose reference gradient is under ``floor`` times
+    the median leaf's is nought to rounding and left out."""
     def norms(leaves):
         return torch.stack([x.double().reshape(len(x), -1).norm(dim=1)
                             for x in leaves], dim=1)           # [B, leaves]
 
     g, w = norms(got), norms(want)
     med = w.median(dim=1, keepdim=True).values
-    gap = (g - w).abs() / torch.maximum(w, med)
+    gap = (g - w).abs()
+    if allow is not None:
+        gap = (gap - allow.to(gap)).clamp(min=0)
+    gap = gap / torch.maximum(w, med)
     return torch.where(w >= floor * med, gap,
                        torch.zeros_like(gap)).max(dim=1).values
 

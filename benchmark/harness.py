@@ -47,7 +47,8 @@ def load_module(kind: str, name: str, root: str = HERE):
 
 def cell(name: str, root: str = HERE, bench_json: str | None = None):
     """A cell's parts, found by name: its workload file, configuration
-    file, driver module, and the end-to-end and per-layer metric entries
+    file (with the workload's ``fit`` settings over its own), driver
+    module, and the end-to-end and per-layer metric entries
     of ``BENCHMARK.json`` that it reports (a metric with no
     ``workloads`` list is reported by every cell that reports the metric
     it moves)."""
@@ -58,6 +59,9 @@ def cell(name: str, root: str = HERE, bench_json: str | None = None):
         raise SystemExit(f"unknown workload {name!r}")
     work = load_json(root, "workloads", name + ".json")
     config = load_json(root, "configs", work["config"] + ".json")
+    # a workload's ``fit`` settings (the app's flags it runs with) over
+    # the configuration's
+    config["fit"] = dict(config["fit"], **work.get("fit", {}))
     e2e = [m for m in bench["end_to_end"]
            if name in m.get("workloads", [name])]
     e2e_names = {m["name"] for m in e2e}

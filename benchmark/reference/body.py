@@ -135,12 +135,9 @@ def full_pose(model: Model, p: dict) -> torch.Tensor:
     return aa.reshape(aa.shape[0], -1, 3)
 
 
-def face_landmarks(model: Model, verts: torch.Tensor,
-                   pose: torch.Tensor) -> torch.Tensor:
-    """The 51 static and 17 contour landmarks ``[B, 68, 3]``; the contour
-    row follows the head's yaw along the neck chain, in whole degrees
-    clamped to [-39, 39] (the released dynamic landmark table)."""
-    B = verts.shape[0]
+def yaw_degrees(model: Model, pose: torch.Tensor) -> torch.Tensor:
+    """The head's yaw ``[B]`` in degrees along the neck chain, as the
+    dynamic landmark table reads it (before its rounding)."""
     chain, j = [], 12
     while j != -1:
         chain.append(j)
@@ -151,7 +148,24 @@ def face_landmarks(model: Model, verts: torch.Tensor,
         rel = rots[:, i] @ rel
     yaw = -torch.atan2(-rel[:, 2, 0], torch.sqrt(rel[:, 0, 0] ** 2
                                                 + rel[:, 1, 0] ** 2))
-    deg = torch.round(torch.clamp(yaw * (180.0 / np.pi), max=39.0)).long()
+    return yaw * (180.0 / np.pi)
+
+
+def whole_degrees(yaw: torch.Tensor) -> torch.Tensor:
+    """The whole degree ``[B]`` (int64) that picks the dynamic landmark
+    row: the yaw clamped to at most 39 and rounded."""
+    return torch.round(torch.clamp(yaw, max=39.0)).long()
+
+
+def face_landmarks(model: Model, verts: torch.Tensor, pose: torch.Tensor,
+                   deg: torch.Tensor | None = None) -> torch.Tensor:
+    """The 51 static and 17 contour landmarks ``[B, 68, 3]``; the contour
+    row follows the head's yaw along the neck chain, in whole degrees
+    clamped to [-39, 39] (the released dynamic landmark table).  ``deg``
+    forces the whole degree of each frame."""
+    B = verts.shape[0]
+    if deg is None:
+        deg = whole_degrees(yaw_degrees(model, pose))
     row = torch.where(deg < 0, torch.where(deg < -39, 78, 39 - deg), deg)
     faces = torch.cat([model.lmk_faces.expand(B, -1), model.dyn_faces[row]],
                       1)
@@ -162,11 +176,12 @@ def face_landmarks(model: Model, verts: torch.Tensor,
     return (tri * bary[..., None]).sum(2)
 
 
-def forward(model: Model, p: dict):
+def forward(model: Model, p: dict, deg: torch.Tensor | None = None):
     """``(vertices [B, V, 3], joints [B, Jo, 3])`` of the parameters ``p``
     (``betas``, ``global_orient``, ``body_pose`` and, for SMPL-X,
     ``expression``, ``jaw_pose``, eye and hand poses); the joints in
-    OpenPose order (BODY_25 for SMPL)."""
+    OpenPose order (BODY_25 for SMPL).  ``deg``: the face landmarks'
+    whole degree of yaw, forced (:func:`face_landmarks`)."""
     B = p["betas"].shape[0]
     v = model.v_template + torch.einsum("bs,vcs->bvc", p["betas"],
                                         model.shapedirs)
@@ -205,7 +220,8 @@ def forward(model: Model, p: dict):
     sel = torch.as_tensor(SELECTOR_IDS[model.kind], device=verts.device)
     joints = torch.cat([posed_joints, verts[:, sel]], 1)
     if model.kind == "smplx":
-        joints = torch.cat([joints, face_landmarks(model, verts, pose)], 1)
+        joints = torch.cat([joints, face_landmarks(model, verts, pose, deg)],
+                           1)
         order = SMPLX_TO_OPENPOSE
     else:
         order = SMPL_TO_BODY25

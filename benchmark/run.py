@@ -96,10 +96,12 @@ def main(argv=None, device="cuda", root=None, bench_json=None):
         setup_s = time.perf_counter() - T_START
         records, window_s = harness.window(driver, state, args.seconds)
         traced = []
+        t_traced = time.perf_counter()
         if args.trace:
             # one more unit after the window, profiled: the window's own
             # units run without the profiler, whose hooks slow a process
             traced = [driver.traced_unit(state, len(records), workdir)]
+        t_traced = time.perf_counter() - t_traced
         peak = (torch.cuda.max_memory_allocated() if device == "cuda"
                 else 0)
         dev_info = dict(platform="gpu" if device == "cuda" else "cpu",
@@ -107,6 +109,7 @@ def main(argv=None, device="cuda", root=None, bench_json=None):
                               else "cpu"),
                         count=cell["entry"]["chips"], memory_peak_bytes=peak)
         breakdown = None
+        t_read = time.perf_counter()
         if args.trace:
             extra, breakdown = trace_summary(traced[0])
             dev_info.update(extra)
@@ -120,6 +123,7 @@ def main(argv=None, device="cuda", root=None, bench_json=None):
             value = harness.load_module("metrics", m["name"], root).read(run)
             if value is not None:
                 metrics[m["name"]] = dict(value=value, unit=m["unit"])
+        t_read = time.perf_counter() - t_read
         driver.release(records + traced)
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -139,11 +143,13 @@ def main(argv=None, device="cuda", root=None, bench_json=None):
         print("units (span seconds): " + "; ".join(
             ", ".join(f"{n} {b - a:.3f}" for n, a, b in r["spans"])
             for r in records), file=sys.stderr)
-        print(f"setup {setup_s:.3f} s, window {window_s:.3f} s, "
-              f"{len(records)} units, {torch.get_num_threads()} CPU "
-              f"threads, peak {peak} B, reference "
-              f"{t_check:.3f} s; "
-              f"card {counts.power_limit()}", file=sys.stderr)
+        print(f"{len(records)} units, {torch.get_num_threads()} CPU "
+              f"threads, peak {peak} B; card {counts.power_limit()}",
+              file=sys.stderr)
+        print(f"phases (s): setup {setup_s:.3f}, window {window_s:.3f}, "
+              f"traced unit {t_traced:.3f}, trace reading {t_read:.3f}, "
+              f"reference {t_check:.3f}, process "
+              f"{time.perf_counter() - T_START:.3f}", file=sys.stderr)
         harness.emit(result, checks)
         return 0
     finally:

@@ -1,4 +1,4 @@
-"""A copy of the benchmark's tree whose two cells are cut to a size the
+"""A copy of the benchmark's tree whose cells are cut to a size the
 CPU runs in seconds (4 views at 128 px, 9 steps, a 12^3 volume), for
 tests that drive whole runs on the CPU."""
 
@@ -38,9 +38,10 @@ def small_tree(dst):
 
     _edit(os.path.join(root, "configs", "smplx_genebody.json"), mask)
     _edit(os.path.join(root, "configs", "smpl_renderpeople.json"), scan)
-    _edit(os.path.join(root, "workloads", "genebody_mask_b8.json"),
-          lambda d: d["traffic"].update(frames_per_unit=2, pool_units=2,
-                                        splat_dilate=1))
+    for cell in ("genebody_mask_b8", "genebody_kp_b8"):
+        _edit(os.path.join(root, "workloads", cell + ".json"),
+              lambda d: d["traffic"].update(frames_per_unit=2, pool_units=2,
+                                            splat_dilate=1))
     _edit(os.path.join(root, "workloads", "rp_scan_sdf.json"),
           lambda d: d["traffic"].update(pool_units=1, subdivisions=0))
     return root

@@ -38,6 +38,17 @@ def test_mask_cell_counts():
     assert counts.mask_rows(cfg) == 2619 + 21 + 204
 
 
+def test_keypoint_cell_counts():
+    """Without masks: the joints-reduced rows, no silhouette work, a step
+    alike on both sides of the gate."""
+    cfg = harness.cell("genebody_kp_b8")["config"]
+    assert counts.mask_rows(cfg) == 21 + 204
+    pre, post = counts.mask_step_ops(cfg, 8)
+    assert 0 < pre == post < counts.mask_step_ops(_config("smplx_genebody"),
+                                                  8)[0]
+    assert counts.mask_fit_ops(cfg, 8) == 600 * pre
+
+
 @pytest.mark.parametrize("den", [2, 3, 4])
 def test_counts_follow_the_configuration(den):
     """The gate, the keypoints and the vertex-picked rows come from the

@@ -1,6 +1,7 @@
 """Whole runs on the CPU at a small size (the look for a card skipped)
 with the timed path broken underneath: ``correct`` comes out false for
-each fault a fit cell can have, and true for the sound program."""
+each fault a fit cell can have, and true for the sound program and its
+sound alternative routes."""
 
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ from benchmark import run
 from benchmark.tests import faults
 from benchmark.tests.small import small_tree
 
-CASES = [(cell, v) for cell in ("genebody_mask_b8", "rp_scan_sdf")
+CASES = [(cell, v) for cell in ("genebody_mask_b8", "rp_scan_sdf",
+                                 "genebody_kp_b8")
          for v in ("sound", "state_unchanged", "half_batch", "answer_altered")
-         ] + [("genebody_mask_b8", "mask_half")]
+         ] + [("genebody_mask_b8", v) for v in ("mask_half",)
+              + faults.SOUND_ROUTES]
 
 
 @pytest.fixture(scope="module")
@@ -30,4 +33,5 @@ def test_fault_makes_run_incorrect(tree, capsys, cell, fault):
                       root=tree)
     assert rc == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert res["correct"] is (fault == "sound"), res["checks"]
+    sound = fault in ("sound",) + faults.SOUND_ROUTES
+    assert res["correct"] is sound, res["checks"]

@@ -102,6 +102,32 @@ def test_new_cell_runs_with_no_edit(tmp_path, capsys):
     assert {k: after[k] for k in before} == before
 
 
+def test_keypoint_cell_is_found_and_run(tmp_path, capsys):
+    """The keypoint-only cell: the configuration of the mask cell with the
+    workload's ``use_mask`` false over it, no masks in its pool, no masked
+    step to check, and its per-layer metrics read."""
+    root = small_tree(str(tmp_path))
+    kp = harness.cell("genebody_kp_b8", root=root)
+    assert kp["config"]["fit"]["use_mask"] is False
+    assert harness.cell("genebody_mask_b8",
+                        root=root)["config"]["fit"]["use_mask"] is True
+    names = {m["name"] for m in kp["per_layer"]}
+    assert "silhouette_roofline_pct" not in names
+    assert "obs_contours_ms.fit" not in names
+    for trace in ("0", "1"):
+        rc = run.main(["--workload", "genebody_kp_b8", "--seed", "4294967311",
+                       "--seconds", "0", "--trace", trace], device="cpu",
+                      root=root)
+        assert rc == 0
+        res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert res["correct"] is True, res["checks"]
+        assert set(res["checks"]) == {"obs", "verts", "steps"}
+        want = kp["per_layer"] if trace == "1" else kp["end_to_end"]
+        # the device-trace readers find no device events on the CPU
+        assert set(res["metrics"]) <= {m["name"] for m in want}
+        assert ("fit_frames_per_s" in res["metrics"]) is (trace == "0")
+
+
 def test_split_metric_falls_back_to_its_base_reader(tmp_path):
     """``<name>.<part>`` with no file of its own is read by
     ``<name>.py``; a file of its own comes first."""

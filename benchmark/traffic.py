@@ -203,11 +203,14 @@ def initial_params(gt, noise, rng, keep_pose):
 
 
 def mask_frames(model, cfg, t, seed):
-    """The pool of a multi-view mask fit: ``t["pool_units"]`` units of
+    """The pool of a multi-view fit: ``t["pool_units"]`` units of
     ``t["frames_per_unit"]`` frames, each frame a dict of keypoints
     ``[views, 135, 3]`` (model joint order), masks, and initial
     parameters; the shared cameras; and the crop shape that holds every
-    pool frame's silhouettes (12.5 % slack, rounded up to 8 x 128)."""
+    pool frame's silhouettes (12.5 % slack, rounded up to 8 x 128).  A
+    fit without masks (``cfg["fit"]["use_mask"]`` false) gets none and
+    no crop shape; its keypoints and starts are those of the same seed
+    with masks."""
     rig = cfg["rig"]
     rng = rng_for(seed, 3)
     n = t["pool_units"] * t["frames_per_unit"]
@@ -227,9 +230,12 @@ def mask_frames(model, cfg, t, seed):
         kp = np.concatenate([kp, np.ones(kp.shape[:2] + (1,))], -1)
         masks = [splat_mask(project(verts[f, ::4], c2ws[i], Ks[i]),
                             rig["imsize"], t["splat_dilate"])
-                 for i in mask_ids]
+                 for i in mask_ids] if cfg["fit"].get("use_mask") else []
         frames.append(dict(keypoints=kp.astype(np.float32), masks=masks,
                            init={k: a[f] for k, a in init.items()}))
+    if not cfg["fit"].get("use_mask"):
+        return dict(frames=frames, c2ws=c2ws, Ks=Ks, mask_ids=[],
+                    crop_hw=None)
     hw = np.zeros(2, np.int64)
     for fr in frames:
         for m in fr["masks"]:
